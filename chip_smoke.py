@@ -8,25 +8,37 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
 
 1. holds every kernel against its plain PyTorch version on the card, bit
-   for bit (ES scan in both modes, ES on/off, minsup <= 0, bw 1/8/128 up
-   to the kosarak-paper row of 242 blocks; the fused dispatch with
-   untouched non-survivor and out-of-range slots; compaction of rows,
-   suffix tables and (cap, 3) codes with -1 and >= cap entries);
-2. mines the three smoke regimes at block_words=8, ES on and off, and
-   requires every counter of ``benchmarks/baselines/BENCH_smoke.json``;
+   for bit: the ES scan (both modes, ES on/off, minsup <= 0, bw 1/8/128
+   up to 242 blocks), the dEclat difference (zero-mass U blocks, nb up
+   to 84 and 242), both fused dispatches with untouched non-survivor and
+   out-of-range slots, the N-list merge and Z-merge scatter (lengths 0,
+   1, every bucket edge and 32769; whole pool slabs equal) and the
+   compaction gather (rows, suffix tables, (cap, 3) codes);
+2. mines the three smoke regimes, ES on and off, and requires every
+   counter of ``benchmarks/baselines/BENCH_smoke.json``: eclat at
+   block_words=8, adaptive at its baseline knobs, PrePost+;
 3. mines kosarak-paper at scale 0.1, all four rungs, and requires the
    itemset counts and work counters of ``BENCH_full.json``;
 4. drives the main path at real size — kosarak-paper at scale 1.0
    (990,000 transactions, 242 blocks of 128 words, an 8192-row slab of
-   about 1 GB) through ``BitmapMiner.mine_packed`` — with every kernel's
-   launch count set to 0 just before and read just after; then ES off
-   must give the same itemsets, every support is recomputed on the host
-   from the packed bitmaps, and the largest rung must equal the port's
+   about 1 GB) through ``BitmapMiner.mine_packed`` — then ES off, a host
+   recount of every support, and the largest rung against the port's
    plain path on the CPU;
-5. holds the main path's first fused dispatch (every level-1 pair on a
-   fresh real-size slab) bit for bit against its plain version, then
-   times each kernel with CUDA events at the main path's shapes, beside
-   its bound, its plain version and (compaction) a PyTorch library call.
+5. drives dEclat and adaptive at real size — accidents-paper at scale
+   1.0 (340,183 transactions, 84 blocks) — ES on and off, each against
+   eclat's itemset map, and the largest rung against the CPU path;
+6. drives PrePost+ at real size on the main path's database: transaction
+   lists from the same seeded stream, a host PPC-tree (its item supports
+   equal to the BitmapDB's), ``DevicePrePost`` ES on and off against the
+   main path's itemset map, and minsup 19,800 against the CPU path;
+7. holds each path's first dispatch at real size against its plain
+   version, then times every kernel with CUDA events at those shapes,
+   beside its bound, its plain version and (compaction) a library call.
+
+Every path runs with every kernel's launch count set to 0 just before
+and read just after; a path that launched one of its kernels no time
+fails.  ``--profile DIR`` adds one profiled run of the three real-size
+paths (device busy time against the host wall).
 
 It prints the card's name and power limit, a ``kernels`` JSON line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -99,8 +111,8 @@ def phase_kernels(dev, rng) -> dict:
             u &= rng.integers(0, 2 ** 32, (n, nb, bw), dtype=np.uint64)
         return torch.from_numpy(u.astype(np.uint32).view(np.int32)).to(dev)
 
-    err = {"bitmap_intersect_es": 0, "compact_gather": 0}
-    n_checks = {"bitmap_intersect_es": 0, "compact_gather": 0}
+    err = {name: 0 for name, *_ in KERNELS}
+    n_checks = {name: 0 for name, *_ in KERNELS}
 
     def agree(name, got, want, what):
         e = max(_max_err(g, w) for g, w in zip(got, want, strict=True))
@@ -201,9 +213,210 @@ def phase_kernels(dev, rng) -> dict:
     got = ops.compact_rows(r0, suffix_popcounts(r0), perm)
     want = ops.compact_rows(r0, suffix_popcounts(r0), perm, backend="plain")
     agree("compact_gather", got, want, "compact_rows")
+    codes = rows(cap, 1, 3, 0)[:, 0].contiguous()
+    agree("compact_gather", (ops.compact_codes(codes, perm),),
+          (ops.compact_codes(codes, perm, backend="plain"),), "compact_codes")
+
+    _check_diff(dev, rows, agree)
+    _check_nlists(dev, rng, agree)
+    _check_nlist_intersect(dev, rng, agree)
     torch.cuda.synchronize()
     say(f"phase kernels: ok — {n_checks} comparisons, max abs err {err}")
     return {"max_abs_err": err, "checks": n_checks}
+
+
+def _check_diff(dev, rows, agree) -> None:
+    """bitmap_diff_es against its plain version: the standalone scan and
+    the fused dispatch, with zero-mass U blocks (a zero-mass prefix too)
+    and words with bit 31 set."""
+    import torch
+    from repro_torch.core.bitmap import suffix_popcounts
+    from repro_torch.kernels import ops
+
+    for bw, nb, P, density in ((1, 9, 33, 1), (8, 7, 33, 1), (128, 3, 33, 1),
+                               (128, 84, 48, 3), (128, 242, 24, 3)):
+        U, V = rows(P, nb, bw, density), rows(P, nb, bw, density)
+        U[::2, nb // 3] = 0
+        U[1::3, :(nb + 1) // 2] = 0
+        su = suffix_popcounts(U)
+        rho = su[:, 0].contiguous()
+        nt = nb * bw * 32
+        for minsup in (-(2 ** 31), -4, 0, 1, nt // 64, nt // 16, nt // 8,
+                       nt):
+            agree("bitmap_diff_es",
+                  ops.bitmap_diff_es(U, V, su, rho, minsup),
+                  ops.bitmap_diff_es(U, V, su, rho, minsup, backend="plain"),
+                  f"diff scan bw={bw} nb={nb} minsup={minsup}")
+
+    for bw, nb, cap, density in ((1, 9, 64, 1), (8, 7, 64, 1),
+                                 (128, 84, 48, 3)):
+        slab0 = rows(cap, nb, bw, density)
+        slab0[:8, nb // 2] = 0
+        suf0 = suffix_popcounts(slab0)
+        P = 20
+        g = torch.Generator().manual_seed(nb)
+        ua = torch.randint(0, 16, (P,), generator=g, dtype=torch.int32).to(dev)
+        vb = torch.randint(0, 16, (P,), generator=g, dtype=torch.int32).to(dev)
+        slots_np = np.arange(16, 16 + P, dtype=np.int32)
+        slots_np[-1] = cap + 3
+        slots_np[-2] = -1
+        slots = torch.from_numpy(slots_np).to(dev)
+        rho = suf0[ua.long(), 0].contiguous()
+        nt = nb * bw * 32
+        for es in (True, False):
+            for minsup in (0, 1, nt // 64, nt // 16, nt // 8):
+                rk, sk = slab0.clone(), suf0.clone()
+                rp, sp = slab0.clone(), suf0.clone()
+                got = ops.screen_and_diff(rk, sk, ua, vb, slots, rho, minsup,
+                                          early_stop=es)
+                want = ops.screen_and_diff(rp, sp, ua, vb, slots, rho, minsup,
+                                           early_stop=es, backend="plain")
+                what = f"fused diff bw={bw} nb={nb} es={es} minsup={minsup}"
+                agree("bitmap_diff_es", got, want, what)
+                keep = (got[4] & (rho - got[2] >= minsup)).cpu().numpy()
+                for i in np.flatnonzero(~keep):
+                    s = int(slots_np[i])
+                    if 0 <= s < cap:
+                        need(torch.equal(rk[s], slab0[s])
+                             and torch.equal(sk[s], suf0[s]),
+                             f"{what}: non-survivor slot {s} written")
+                need(torch.equal(rk[16 + P:], slab0[16 + P:])
+                     and torch.equal(rk[:16], slab0[:16]),
+                     f"{what}: rows outside the child slots written")
+
+
+def _random_nlist(rng, n: int, span: int) -> np.ndarray:
+    """``n`` PP-codes with distinct ascending pre ranks below ``span``."""
+    pre = np.sort(rng.choice(span, n, replace=False)).astype(np.int32)
+    post = rng.integers(0, span, n).astype(np.int32)
+    return np.stack([pre, post, rng.integers(1, 20, n).astype(np.int32)], 1)
+
+
+def _check_nlists(dev, rng, agree) -> None:
+    """nlist_merge (through nlist_presize and nlist_intersect) and the
+    Z-merge scatter (through nlist_scatter and nlist_extend) against
+    their plain versions: operand lengths 0, 1, every bucket edge and
+    one past 32768 (a 65536-wide match table), ES on and off, whole pool
+    slabs equal with skipped (out_off >= cap) pairs untouched.  The plain
+    merge takes one masked step per loop iteration for the whole batch,
+    so the 32769-code walk gets a batch of its own."""
+    from repro_torch.core.bitmap import nl_pad_len
+
+    edges = [0, 1, 7, 8, 9, 31, 32, 33, 127, 128, 129, 511, 512, 513,
+             2047, 2048, 2049, 8191, 8192, 8193]
+
+    # Bucket edges: long U lists meet short V lists and vice versa.
+    pairs = [(_random_nlist(rng, n, 20000), _random_nlist(rng, m, 20000))
+             for n, m in zip(edges, reversed(edges), strict=True)]
+    _nlist_batch(dev, rng, agree, pairs,
+                 plans=((True, 1), (True, 400), (False, 1)),
+                 extend=((True, 30), (False, 1)))
+    # One U of 32769 codes, every one a descendant of V's single code: the
+    # walk goes through all of U (one Z-merge group of 32769 matches).
+    n_long = 32769
+    k = np.arange(n_long, dtype=np.int32)
+    long_u = np.stack([10 + k, 10 ** 8 - k, 1 + k % 5], 1).astype(np.int32)
+    pairs = [(long_u, np.array([[5, 10 ** 9, 3]], np.int32)),
+             (long_u, _random_nlist(rng, 40, 20000))]
+    got = _nlist_batch(dev, rng, agree, pairs, plans=((False, 1),),
+                       extend=((True, 1),))
+    need(nl_pad_len(n_long) == 65536 and got[0].shape[1] == 65536,
+         "the long operand's match table is not 65536 wide")
+    need(int(got[3][0]) == n_long and int(got[1][0]) == 1,
+         "the long walk did not cover all of U in one group")
+
+
+def _nlist_batch(dev, rng, agree, pairs, *, plans, extend):
+    """Lay the (U, V) code lists of ``pairs`` out in one pool slab and
+    hold presize + tight scatter (``plans``: (early_stop, minsup)) and
+    the one-call extend against the plain versions."""
+    import torch
+    from repro_torch.core.bitmap import nl_pad_len
+    from repro_torch.kernels import ops
+
+    ext, bump = [], 0
+    cols = [[], [], [], []]
+    for u, v in pairs:
+        for arr, c in ((u, 0), (v, 2)):
+            ext.append((bump, arr))
+            cols[c].append(bump)
+            cols[c + 1].append(len(arr))
+            bump += len(arr)
+    P = len(pairs)
+    room = int(sum(cols[1]))
+    cap = 64
+    while cap < bump + room:
+        cap *= 2
+    codes_np = rng.integers(0, 1000, (cap, 3)).astype(np.int32)
+    for off, arr in ext:
+        codes_np[off:off + len(arr)] = arr
+    codes = torch.from_numpy(codes_np).to(dev)
+    cols = [np.asarray(c, np.int32) for c in cols]
+    rho = np.array([int(v[:, 2].sum()) for _, v in pairs], np.int32)
+    lu, lv = nl_pad_len(int(cols[1].max())), nl_pad_len(int(cols[3].max()))
+    first = None
+    for es, minsup in plans:
+        got = ops.nlist_presize(codes, *cols, rho, minsup, lu=lu, lv=lv,
+                                early_stop=es)
+        want = ops.nlist_presize(codes, *cols, rho, minsup, lu=lu, lv=lv,
+                                 early_stop=es, backend="plain")
+        what = f"nlist presize lu={lu} es={es} minsup={minsup}"
+        agree("nlist_merge", got, want, what)
+        first = first or got
+        # tight extents for survivors, skipped pairs past the slab
+        support = got[2].cpu().numpy()
+        child_len = got[1].cpu().numpy()
+        out_off = np.full(P, cap + 7, np.int32)
+        nxt = bump
+        for p in np.flatnonzero(support >= minsup):
+            out_off[p] = nxt
+            nxt += int(child_len[p])
+        ck, cp = codes.clone(), codes.clone()
+        a = ops.nlist_scatter(ck, got[0], *cols, out_off, lu=lu, lv=lv)
+        b = ops.nlist_scatter(cp, want[0], *cols, out_off, lu=lu, lv=lv,
+                              backend="plain")
+        agree("zmerge_scatter", a, b, f"nlist scatter, {what}")
+        need(torch.equal(ck[:bump], codes[:bump])
+             and torch.equal(ck[nxt:], codes[nxt:]),
+             f"nlist scatter, {what}: codes outside the child extents "
+             f"written")
+    spaced = (bump + np.concatenate([[0], np.cumsum(cols[1])[:-1]])
+              ).astype(np.int32)
+    spaced[::3] = cap                                # skipped
+    for es, minsup in extend:
+        ck, cp = codes.clone(), codes.clone()
+        a = ops.nlist_extend(ck, *cols, spaced, rho, minsup, lu=lu, lv=lv,
+                             early_stop=es)
+        b = ops.nlist_extend(cp, *cols, spaced, rho, minsup, lu=lu, lv=lv,
+                             early_stop=es, backend="plain")
+        what = f"nlist extend lu={lu} es={es} minsup={minsup}"
+        agree("nlist_merge", a[1:], b[1:], what)
+        agree("zmerge_scatter", a[:1], b[:1], what)
+    return first
+
+
+def _check_nlist_intersect(dev, rng, agree) -> None:
+    """The padded-batch entry (nlist_intersect) on a small batch."""
+    import torch
+    from repro_torch.kernels import ops
+
+    Pb, wu, wv = 40, 32, 128
+
+    def batch(width):
+        arr = np.stack([_random_nlist(rng, width, 4 * width + 8)
+                        for _ in range(Pb)])
+        return [torch.from_numpy(np.ascontiguousarray(arr[..., c])).to(dev)
+                for c in range(3)]
+    ub, vbt = batch(wu), batch(wv)
+    ul = rng.integers(0, wu + 1, Pb).astype(np.int32)
+    vl = rng.integers(0, wv + 1, Pb).astype(np.int32)
+    rb = rng.integers(0, 400, Pb).astype(np.int32)
+    for es in (True, False):
+        agree("nlist_merge",
+              ops.nlist_intersect(*ub, *vbt, ul, vl, rb, 60, early_stop=es),
+              ops.nlist_intersect(*ub, *vbt, ul, vl, rb, 60, early_stop=es,
+                                  backend="plain"),
+              f"nlist_intersect es={es}")
 
 
 # ---------------------------------------------------------------------------
@@ -224,8 +437,13 @@ def _smoke_datasets():
     }
 
 
+def _non_time(d: dict) -> dict:
+    return {k: v for k, v in d.items() if k not in TIME_KEYS | {"wall_s"}}
+
+
 def phase_smoke(dev) -> dict:
     from repro_torch.core.eclat import mine_bitmap
+    from repro_torch.core.prepost import mine_prepost_device
     base = json.loads((BASELINES / "BENCH_smoke.json").read_text())
     out = {}
     for name, (db, minsup) in _smoke_datasets().items():
@@ -252,6 +470,32 @@ def phase_smoke(dev) -> dict:
             f"word_ops {results['es'][1]['word_ops']}/"
             f"{results['es'][1]['word_ops_full']} wall es "
             f"{results['es'][2]:.3f} s full {results['full'][2]:.3f} s")
+
+        # The adaptive and PrePost+ blocks: every counter the baseline
+        # holds, and the eclat run's itemsets.
+        knobs = want["adaptive"]["knobs"]
+        runs = {"adaptive": lambda es: mine_bitmap(   # noqa: E731
+                    db, minsup, "adaptive", early_stop=es, device=dev,
+                    **knobs),
+                "prepost": lambda es: mine_prepost_device(  # noqa: E731
+                    db, minsup, early_stop=es, device=dev)}
+        for engine, run in runs.items():
+            for tag, es in (("es", True), ("full", False)):
+                t0 = time.perf_counter()
+                got, st = run(es)
+                wall = time.perf_counter() - t0
+                d, w = _non_time(st.as_dict()), _non_time(want[engine][tag])
+                bad = {k: (d[k], w[k]) for k in w if k in d and d[k] != w[k]}
+                need(not bad, f"smoke {name} {engine} {tag}: counters differ "
+                              f"from the baseline (card, baseline): {bad}")
+                need(got == results["es"][0], f"smoke {name} {engine} {tag}: "
+                                              f"itemsets differ from eclat's")
+                out[name][f"{engine}_{tag}"] = {"wall_s": wall, **d}
+            key = "word_ops" if engine == "adaptive" else "comparisons"
+            say(f"phase smoke {name} {engine}: ok — {key} "
+                f"{out[name][engine + '_es'][key]}/"
+                f"{out[name][engine + '_full'][key]} calls "
+                f"{out[name][engine + '_es']['device_calls']}")
     return out
 
 
@@ -355,8 +599,8 @@ def phase_main(dev, counters) -> dict:
         f"{st_es.word_ops_full} calls {st_es.device_calls} compactions "
         f"{st_es.compactions} peak_device_words {st_es.peak_device_words} "
         f"wall {wall_es:.3f} s launches {launches}")
-    for name, n in launches.items():
-        need(n > 0, f"main path launched {name} no time")
+    for name in ("bitmap_intersect_es", "compact_gather"):
+        need(launches[name] > 0, f"main path launched {name} no time")
 
     t0 = time.perf_counter()
     out_no, st_no = _miner(dev, early_stop=False).mine_packed(bdb, ms)
@@ -385,15 +629,14 @@ def phase_main(dev, counters) -> dict:
     wall_p = time.perf_counter() - t0
     need(out_c == out_p, f"minsup={big}: card and CPU plain path itemsets "
                          f"differ")
-    cd = {k: v for k, v in st_c.as_dict().items() if k not in TIME_KEYS}
-    pd = {k: v for k, v in st_p.as_dict().items() if k not in TIME_KEYS}
+    cd, pd = _non_time(st_c.as_dict()), _non_time(st_p.as_dict())
     need(cd == pd, f"minsup={big}: card and CPU counters differ: "
                    f"{ {k: (cd[k], pd[k]) for k in cd if cd[k] != pd[k]} }")
     say(f"phase main largest rung minsup={big}: card == CPU plain path — "
         f"F={len(out_c)} word_ops {st_c.word_ops} wall card {wall_c:.3f} s "
         f"cpu {wall_p:.3f} s")
     return {"bdb": bdb, "minsup": ms, "launches": launches,
-            "compactions": compactions,
+            "compactions": compactions, "itemsets": out_es,
             "report": {
                 "n_trans": bdb.n_trans, "n_items": bdb.n_items,
                 "n_blocks": bdb.n_blocks, "block_words": bdb.block_words,
@@ -407,34 +650,197 @@ def phase_main(dev, counters) -> dict:
                                  **cd}}}
 
 
-def profile_main(dev, main, trace_dir: Path) -> dict:
-    """One more main-path run under ``torch.profiler`` (``--profile DIR``):
+def _launches(counters, run):
+    """Run ``run()`` with every kernel's launch count set to 0 just before
+    and read just after (the card synchronised on both sides)."""
+    import torch
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, {c.__name__: c.launches for c in counters}
+
+
+def phase_declat(dev, counters) -> dict:
+    """dEclat and adaptive at real size: accidents-paper @ 1.0 (340,183
+    transactions, 84 blocks of 128 words) at its smallest rung."""
+    import torch
+    from repro_torch.core.eclat import BitmapMiner
+    from repro_torch.data.transactions import stream_paper_dataset
+
+    t0 = time.perf_counter()
+    bdb, minsups = stream_paper_dataset("accidents-paper", scale=1.0, seed=0)
+    pack_s = time.perf_counter() - t0
+    ms = minsups[0]
+    say(f"phase declat: accidents-paper@1.0 packed in {pack_s:.2f} s — "
+        f"{bdb.n_trans} transactions, {bdb.n_items} frequent items, "
+        f"{bdb.n_blocks} blocks x {bdb.block_words} words, minsup {ms}")
+
+    def miner(scheme, es=True, device=dev):
+        return BitmapMiner(scheme=scheme, early_stop=es, inflight=2,
+                           autotune_chunk=True, device=device)
+
+    (ref_out, ref_st), ref_wall, _ = _launches(
+        counters, lambda: miner("eclat").mine_packed(bdb, ms))
+    say(f"phase declat eclat reference: F={len(ref_out)} word_ops "
+        f"{ref_st.word_ops} calls {ref_st.device_calls} wall "
+        f"{ref_wall:.3f} s")
+    report = {"n_trans": bdb.n_trans, "n_items": bdb.n_items,
+              "n_blocks": bdb.n_blocks, "pack_s": pack_s, "minsup": ms,
+              "eclat": {"wall_s": ref_wall, **ref_st.as_dict(),
+                        "frequent_itemsets": len(ref_out)}}
+    launches = None
+    for scheme in ("declat", "adaptive"):
+        for tag, es in (("es", True), ("full", False)):
+            (out, st), wall, ln = _launches(
+                counters, lambda: miner(scheme, es).mine_packed(bdb, ms))
+            need(out == ref_out, f"accidents {scheme} {tag}: itemset -> "
+                                 f"support map differs from eclat's")
+            if scheme == "declat" and es:
+                launches = ln
+                need(ln["bitmap_diff_es"] > 0,
+                     "the declat path launched bitmap_diff_es no time")
+            report[f"{scheme}_{tag}"] = {
+                "wall_s": wall, "launches": ln, **st.as_dict(),
+                "frequent_itemsets": len(out)}
+            say(f"phase declat {scheme} ES {'on' if es else 'off'}: "
+                f"F={len(out)} word_ops {st.word_ops}/{st.word_ops_full} "
+                f"calls {st.device_calls} peak_rows {st.peak_rows} "
+                f"peak_device_words {st.peak_device_words} wall "
+                f"{wall:.3f} s launches {ln}")
+
+    big = minsups[-1]
+    sub = _rung(bdb, big)
+    for scheme in ("declat", "adaptive"):
+        t0 = time.perf_counter()
+        out_c, st_c = miner(scheme).mine_packed(sub, big)
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_p, st_p = miner(scheme, device="cpu").mine_packed(sub, big)
+        wall_p = time.perf_counter() - t0
+        cd, pd = _non_time(st_c.as_dict()), _non_time(st_p.as_dict())
+        need(out_c == out_p and cd == pd,
+             f"accidents minsup={big} {scheme}: card and CPU plain path "
+             f"differ: { {k: (cd[k], pd[k]) for k in cd if cd[k] != pd[k]} }")
+        report[f"largest_rung_{scheme}"] = {
+            "minsup": big, "wall_card_s": wall_c, "wall_cpu_s": wall_p,
+            "frequent_itemsets": len(out_c), **cd}
+        say(f"phase declat largest rung minsup={big} {scheme}: card == CPU "
+            f"plain path — F={len(out_c)} word_ops {st_c.word_ops} wall "
+            f"card {wall_c:.3f} s cpu {wall_p:.3f} s")
+    return {"bdb": bdb, "minsup": ms, "launches": launches,
+            "report": report}
+
+
+def _kosarak_transactions():
+    """kosarak-paper @ 1.0 as transaction lists, from the same seeded
+    stream and batch that ``stream_paper_dataset`` packs."""
+    from repro_torch.data.transactions import PAPER_REPLICAS, _STREAMS
+    gen_name, kwargs, _ = PAPER_REPLICAS["kosarak-paper"]
+    db = []
+    for items, mask in _STREAMS[gen_name](seed=0, batch=8192, **kwargs):
+        db.extend(row[m].tolist() for row, m in zip(items, mask,
+                                                    strict=True))
+    return db
+
+
+def phase_prepost(dev, counters, main) -> dict:
+    """PrePost+ at real size: kosarak-paper @ 1.0, the main path's
+    database, at the main path's minsup (and its 1450-itemset map)."""
+    import torch
+    from repro_torch.core.oracle import PPCTree
+    from repro_torch.core.prepost import DevicePrePost
+
+    bdb, ms, want = main["bdb"], main["minsup"], main["itemsets"]
+    t0 = time.perf_counter()
+    db = _kosarak_transactions()
+    lists_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = PPCTree(db, ms)
+    tree_s = time.perf_counter() - t0
+    need(tree.item_support == {it: int(s) for it, s in
+                               zip(bdb.items, bdb.supports, strict=True)},
+         "PPC-tree item supports differ from the BitmapDB's")
+    n_codes = sum(len(v) for v in tree.nlists.values())
+    longest = max(len(v) for v in tree.nlists.values())
+    say(f"phase prepost: kosarak-paper@1.0 — {len(db)} transaction lists "
+        f"in {lists_s:.2f} s, PPC-tree at minsup {ms} in {tree_s:.2f} s "
+        f"(host): {len(tree.nlists)} N-lists, {n_codes} codes, longest "
+        f"{longest}")
+    report = {"lists_s": lists_s, "tree_s": tree_s, "minsup": ms,
+              "n_lists": len(tree.nlists), "n_codes": n_codes,
+              "longest": longest}
+    launches = None
+    cmps = {}
+    for tag, es in (("es", True), ("full", False)):
+        (out, st), wall, ln = _launches(
+            counters, lambda: DevicePrePost(early_stop=es, device=dev)
+            .mine_tree(tree, ms))
+        need(out == want, f"kosarak prepost {tag}: itemset -> support map "
+                          f"differs from the main path's")
+        if es:
+            launches = ln
+            for k in ("nlist_merge", "zmerge_scatter"):
+                need(ln[k] > 0, f"the PrePost+ path launched {k} no time")
+        cmps[tag] = st.comparisons
+        report[tag] = {"wall_s": wall, "launches": ln, **st.as_dict(),
+                       "frequent_itemsets": len(out)}
+        say(f"phase prepost ES {'on' if es else 'off'}: F={len(out)} "
+            f"comparisons {st.comparisons} es_checks {st.es_checks} calls "
+            f"{st.device_calls} peak_codes {st.peak_codes} mining wall "
+            f"{wall:.3f} s launches {ln}")
+    need(cmps["es"] <= cmps["full"], "ES raised comparisons")
+
+    big = 19_800
+    t0 = time.perf_counter()
+    tree_b = PPCTree(db, big)
+    tree_b_s = time.perf_counter() - t0
+    del db
+    t0 = time.perf_counter()
+    out_c, st_c = DevicePrePost(device=dev).mine_tree(tree_b, big)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_p, st_p = DevicePrePost(device="cpu").mine_tree(tree_b, big)
+    wall_p = time.perf_counter() - t0
+    cd, pd = _non_time(st_c.as_dict()), _non_time(st_p.as_dict())
+    need(out_c == out_p and cd == pd,
+         f"kosarak prepost minsup={big}: card and CPU plain path differ: "
+         f"{ {k: (cd[k], pd[k]) for k in cd if cd[k] != pd[k]} }")
+    report["minsup_19800"] = {"tree_s": tree_b_s, "wall_card_s": wall_c,
+                              "wall_cpu_s": wall_p,
+                              "frequent_itemsets": len(out_c), **cd}
+    say(f"phase prepost minsup={big}: card == CPU plain path — "
+        f"F={len(out_c)} comparisons {st_c.comparisons} "
+        f"({sum(len(v) for v in tree_b.nlists.values())} codes in "
+        f"{len(tree_b.nlists)} N-lists; tree {tree_b_s:.2f} s) wall card "
+        f"{wall_c:.3f} s cpu {wall_p:.3f} s")
+    return {"tree": tree, "minsup": ms, "launches": launches,
+            "report": report}
+
+
+def profile_path(name: str, run, trace_dir: Path) -> dict:
+    """One more run of a path under ``torch.profiler`` (``--profile DIR``):
     device busy time (the union of kernel, memcpy and memset intervals in
     the exported trace) against the host wall clock, and device time by
     kernel.  The profiler's own host overhead inflates the wall, so the
     idle share reads high by that much."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.rowstore import DeviceRowStore
 
-    # The slab set-up alone (zeroed slab, host suffix table, row upload).
-    bdb = main["bdb"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    DeviceRowStore(bdb.bitmaps, capacity=bdb.n_items + 4096, device=dev)
-    torch.cuda.synchronize()
-    store_ms = (time.perf_counter() - t0) * 1e3
-
-    miner = _miner(dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        miner.mine_packed(main["bdb"], main["minsup"])
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     trace_dir.mkdir(parents=True, exist_ok=True)
-    path = trace_dir / "main_path_trace.json"
+    path = trace_dir / f"{name}_trace.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text()).get("traceEvents", [])
     spans, by_name = [], {}
@@ -452,18 +858,50 @@ def profile_main(dev, main, trace_dir: Path) -> dict:
             end = hi
     busy_ms = busy_us / 1e3
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "store_setup_ms": store_ms,
            "idle_share": (1 - busy_ms / wall_ms) if spans else None,
            "by_name": {k: {"count": n, "ms": t}
                        for k, (n, t) in sorted(by_name.items(),
                                                key=lambda kv: -kv[1][1])},
            "trace": str(path)}
-    say(f"profile main path: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms ({len(spans)} device events); slab set-up "
-        f"alone {store_ms:.3f} ms")
+    say(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms ({len(spans)} device events)")
     for k, v in list(out["by_name"].items())[:8]:
         say(f"  {v['ms']:.4f} ms  x{v['count']}  {k}")
     return out
+
+
+def profile_all(dev, main, declat, prepost, trace_dir: Path) -> dict:
+    """``--profile``: the main path, the dEclat path and the PrePost+
+    path, each once more under the profiler; plus the main path's slab
+    set-up alone."""
+    import torch
+    from repro_torch.core.eclat import BitmapMiner
+    from repro_torch.core.prepost import DevicePrePost
+    from repro_torch.core.rowstore import DeviceRowStore
+
+    bdb = main["bdb"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    DeviceRowStore(bdb.bitmaps, capacity=bdb.n_items + 4096, device=dev)
+    torch.cuda.synchronize()
+    store_ms = (time.perf_counter() - t0) * 1e3
+    say(f"profile: main path slab set-up alone {store_ms:.3f} ms")
+    declat_miner = BitmapMiner(scheme="declat", inflight=2,
+                               autotune_chunk=True, device=dev)
+    return {
+        "store_setup_ms": store_ms,
+        "main_path": profile_path(
+            "main_path", lambda: _miner(dev).mine_packed(bdb, main["minsup"]),
+            trace_dir),
+        "declat_path": profile_path(
+            "declat_path",
+            lambda: declat_miner.mine_packed(declat["bdb"], declat["minsup"]),
+            trace_dir),
+        "prepost_path": profile_path(
+            "prepost_path",
+            lambda: DevicePrePost(device=dev).mine_tree(prepost["tree"],
+                                                        prepost["minsup"]),
+            trace_dir)}
 
 
 # ---------------------------------------------------------------------------
@@ -611,13 +1049,188 @@ def phase_timing(dev, main) -> dict:
             "live": n_valid, "bytes": comp_bytes}}
 
 
+def phase_timing_slice2(dev, declat, prepost) -> dict:
+    """The dEclat and PrePost+ kernels at their paths' real shapes: each
+    path's first dispatch, held against its plain version on the same
+    fresh state, then timed beside its bound and its plain version.  No
+    single PyTorch call computes a blocked early-stopping AND-NOT with a
+    survivor scatter, a two-pointer ancestor merge, or the Z-merge of a
+    match table, so there is no library time for these three."""
+    import torch
+    from repro_torch.core.bitmap import (NL_SENTINEL, nl_pad_len,
+                                         nl_pad_len_np)
+    from repro_torch.core.rowstore import DeviceRowStore, NListPool
+    from repro_torch.kernels import ops
+
+    time_ms = _timer(dev)
+    out = {}
+
+    # -- bitmap_diff_es: the declat path's first dispatch (every level-1
+    # pair, tidset operands -> level-2 diffsets) on a fresh slab.
+    bdb, ms = declat["bdb"], declat["minsup"]
+    nb, bw = bdb.n_blocks, bdb.block_words
+    store = DeviceRowStore(bdb.bitmaps, capacity=bdb.n_items + 4096,
+                           device=dev)
+    ia, ib = np.triu_indices(bdb.n_items, 1)
+    P = int(ia.size)
+    slots = store.alloc(P)
+    rho_np = bdb.supports[ia].astype(np.int32)
+    _, (ua, vb, sl, rho) = ops.upload_columns(dev, [
+        ia.astype(np.int32), ib.astype(np.int32), slots, rho_np])
+
+    def diff(backend="auto"):
+        return ops.screen_and_diff(store.rows, store.suffix, ua, vb, sl, rho,
+                                   ms, backend=backend)
+
+    rows_p, suffix_p = store.rows.clone(), store.suffix.clone()
+    _, _, cnt, blocks, alive = diff()
+    want = ops.screen_and_diff(rows_p, suffix_p, ua, vb, sl, rho, ms,
+                               backend="plain")
+    got = (cnt, blocks, alive, store.rows, store.suffix)
+    diff_err = max(_max_err(g, w) for g, w in
+                   zip(got, (*want[2:], *want[:2]), strict=True))
+    need(diff_err == 0, f"first diff dispatch at {P} pairs x {nb} blocks "
+                        f"disagrees with its plain version (max abs err "
+                        f"{diff_err})")
+    del rows_p, suffix_p, want
+    blocks_np = blocks.cpu().numpy().astype(np.int64)
+    n_surv = int((alive & (rho - cnt >= ms)).sum().item())
+    row_blocks = np.zeros(store.capacity, np.int64)
+    np.maximum.at(row_blocks, ia, blocks_np)
+    np.maximum.at(row_blocks, ib, blocks_np)
+    diff_bytes = (int(row_blocks.sum()) * bw * 4          # operand words
+                  + len(np.unique(ia)) * (nb + 1) * 4     # U suffix tables
+                  + n_surv * (nb * bw + nb + 1) * 4       # child rows
+                  + P * 4 * 4 + P * 9)                    # columns, outputs
+    blocks_sum = int(blocks_np.sum())
+    diff_ops = 3 * blocks_sum * bw                        # andn, popc, add
+    diff_bound, diff_by = _bound(diff_bytes, diff_ops)
+    diff_ms = time_ms(diff, 20)
+    diff_plain_ms = time_ms(lambda: diff("plain"), 3)
+    del store
+    say(f"timing bitmap_diff_es (fused, {P} pairs x {nb} blocks x {bw} "
+        f"words, blocks_done {blocks_sum}, {n_surv} survivors, equal to "
+        f"plain): kernel {diff_ms:.4f} ms, plain {diff_plain_ms:.4f} ms, "
+        f"bound {diff_bound:.4f} ms ({diff_by}: {diff_bytes} B, "
+        f"{diff_ops} ops)")
+    out["bitmap_diff_es"] = {
+        "ms": diff_ms, "plain_ms": diff_plain_ms, "bound_ms": diff_bound,
+        "bound_by": diff_by, "library_ms": None, "max_abs_err": diff_err,
+        "pairs": P, "blocks_done": blocks_sum, "survivors": n_surv,
+        "bytes": diff_bytes, "ops": diff_ops}
+
+    # -- nlist_merge: the PrePost+ path's first pre-pass (every level-1
+    # pair in one chunk, sorted by length bucket as the engine sorts).
+    tree, ms = prepost["tree"], prepost["minsup"]
+    order = list(reversed(tree.order_desc))
+    arrays = [np.asarray(tree.nlists[it], np.int32).reshape(-1, 3)
+              for it in order]
+    lens = np.array([len(a) for a in arrays], np.int32)
+    sups = np.array([tree.item_support[it] for it in order], np.int32)
+    pool = NListPool(capacity=max(64, 2 * sum(nl_pad_len(max(n, 1))
+                                              for n in lens)), device=dev)
+    prow = pool.alloc_rows(lens)
+    pool.write_rows(prow, arrays)
+    ia, ib = np.triu_indices(len(order), 1)
+    key = np.argsort(nl_pad_len_np(np.maximum(lens[ia], lens[ib])),
+                     kind="stable")
+    ia, ib = ia[key], ib[key]
+    P = int(ia.size)
+    u_len, v_len = lens[ia], lens[ib]
+    lu, lv = nl_pad_len(int(u_len.max())), nl_pad_len(int(v_len.max()))
+    _, cols = ops.upload_columns(dev, [
+        pool.offsets(prow[ia]), u_len, pool.offsets(prow[ib]), v_len,
+        sups[ib]])
+
+    def merge(backend="auto"):
+        return ops.nlist_presize(pool.codes, *cols, ms, lu=lu, lv=lv,
+                                 backend=backend)
+
+    got = merge()
+    want = merge("plain")
+    merge_err = max(_max_err(g, w) for g, w in zip(got, want, strict=True))
+    need(merge_err == 0, f"first N-list pre-pass at {P} pairs (lu {lu}) "
+                         f"disagrees with its plain version (max abs err "
+                         f"{merge_err})")
+    del want
+    out_slot, child_len, support = got[0], got[1], got[2]
+    cmps_total = int(got[3].sum().item())
+    merge_bytes = (12 * int(lens.sum())                   # every N-list once
+                   + P * lu * 4                           # match table
+                   + P * 5 * 4 + P * 5 * 4 + P)           # columns, outputs
+    merge_ops = 8 * cmps_total        # 2 compares, select, 2 adds, ES guard
+    merge_bound, merge_by = _bound(merge_bytes, merge_ops)
+    merge_ms = time_ms(merge, 20)
+    merge_plain_ms = time_ms(lambda: merge("plain"), 1)
+    say(f"timing nlist_merge (presize, {P} pairs, lu {lu}, "
+        f"{cmps_total} comparisons, equal to plain): kernel "
+        f"{merge_ms:.4f} ms, plain {merge_plain_ms:.4f} ms, bound "
+        f"{merge_bound:.4f} ms ({merge_by}: {merge_bytes} B, {merge_ops} "
+        f"ops)")
+    out["nlist_merge"] = {
+        "ms": merge_ms, "plain_ms": merge_plain_ms, "bound_ms": merge_bound,
+        "bound_by": merge_by, "library_ms": None, "max_abs_err": merge_err,
+        "pairs": P, "lu": lu, "comparisons": cmps_total,
+        "bytes": merge_bytes, "ops": merge_ops}
+
+    # -- zmerge_scatter: that pre-pass's scatter into tight survivor
+    # extents, as the engine allocates them.
+    sup_np, cl_np = support.cpu().numpy(), child_len.cpu().numpy()
+    kept = np.flatnonzero(sup_np >= ms)
+    child_rows = pool.alloc_rows(cl_np[kept])
+    out_off = np.full(P, pool.capacity, np.int32)
+    out_off[kept] = pool.offsets(child_rows)
+    _, scols = ops.upload_columns(dev, [
+        pool.offsets(prow[ia]), u_len, pool.offsets(prow[ib]), v_len,
+        out_off])
+    ck, cp = pool.codes.clone(), pool.codes.clone()
+    a = ops.nlist_scatter(ck, out_slot, *scols, lu=lu, lv=lv)
+    b = ops.nlist_scatter(cp, out_slot, *scols, lu=lu, lv=lv,
+                          backend="plain")
+    scat_err = max(_max_err(g, w) for g, w in zip(a, b, strict=True))
+    need(scat_err == 0, f"N-list scatter at {P} pairs disagrees with its "
+                        f"plain version (max abs err {scat_err})")
+    del ck, cp
+    n_matched = int((out_slot != NL_SENTINEL).sum().item())
+    n_child = int(cl_np[kept].sum())
+    scat_bytes = (P * lu * 4 + 4 * n_matched + 8 * n_child + 12 * n_child
+                  + P * 6 * 4)
+    scat_ops = 3 * P * lu
+    scat_bound, scat_by = _bound(scat_bytes, scat_ops)
+
+    def scatter(backend="auto"):
+        return ops.nlist_scatter(pool.codes, out_slot, *scols, lu=lu, lv=lv,
+                                 backend=backend)
+
+    scat_ms = time_ms(scatter, 20)
+    scat_plain_ms = time_ms(lambda: scatter("plain"), 3)
+    say(f"timing zmerge_scatter ({P} pairs, lu {lu}, {len(kept)} survivors "
+        f"with {n_child} codes, equal to plain): kernel {scat_ms:.4f} ms, "
+        f"plain {scat_plain_ms:.4f} ms, bound {scat_bound:.4f} ms "
+        f"({scat_by}: {scat_bytes} B)")
+    out["zmerge_scatter"] = {
+        "ms": scat_ms, "plain_ms": scat_plain_ms, "bound_ms": scat_bound,
+        "bound_by": scat_by, "library_ms": None, "max_abs_err": scat_err,
+        "pairs": P, "survivors": int(len(kept)), "child_codes": n_child,
+        "bytes": scat_bytes, "ops": scat_ops}
+    return out
+
+
 # ---------------------------------------------------------------------------
 
+# name, source, the TPU kernel (or jnp function) it replaces, the path
+# whose run supplies its launch count
 KERNELS = (
     ("bitmap_intersect_es", "src/repro_torch/csrc/bitmap_intersect.cu",
-     "src/repro/kernels/bitmap_intersect.py:113"),
+     "src/repro/kernels/bitmap_intersect.py:113", "main"),
     ("compact_gather", "src/repro_torch/csrc/compact.cu",
-     "src/repro/kernels/compact.py:44"),
+     "src/repro/kernels/compact.py:44", "main"),
+    ("bitmap_diff_es", "src/repro_torch/csrc/bitmap_diff.cu",
+     "src/repro/kernels/bitmap_diff.py:90", "declat"),
+    ("nlist_merge", "src/repro_torch/csrc/nlist_merge.cu",
+     "src/repro/kernels/nlist_merge.py:100", "prepost"),
+    ("zmerge_scatter", "src/repro_torch/csrc/nlist_merge.cu",
+     "src/repro/kernels/ref.py:697", "prepost"),
 )
 
 
@@ -626,8 +1239,8 @@ def main() -> int:
     ap.add_argument("--report", default="",
                     help="write every measured number to this JSON file")
     ap.add_argument("--profile", default="", metavar="DIR",
-                    help="also profile one main-path run and write its "
-                         "trace into DIR")
+                    help="also profile one run of each real-size path "
+                         "and write the traces into DIR")
     args = ap.parse_args()
 
     src = ROOT / "src"
@@ -653,8 +1266,12 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.bitmap_diff import bitmap_diff_es
     from repro_torch.kernels.bitmap_intersect import bitmap_intersect_es
     from repro_torch.kernels.compact import compact_gather
+    from repro_torch.kernels.nlist_merge import nlist_merge, zmerge_scatter
+    counters = (bitmap_intersect_es, compact_gather, bitmap_diff_es,
+                nlist_merge, zmerge_scatter)
     t0 = time.perf_counter()
     _build.load()
     say(f"build: kernels ready in {time.perf_counter() - t0:.2f} s "
@@ -662,33 +1279,51 @@ def main() -> int:
 
     rng = np.random.default_rng(20261016)
     report = {"card": smi_line, "torch": torch.__version__,
-              "build_s": _build.build_seconds}
+              "build_s": _build.build_seconds, "phase_s": {}}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        report["phase_s"][name] = time.perf_counter() - t0
+        return res
+
     t_start = time.perf_counter()
-    report["kernels"] = phase_kernels(dev, rng)
-    report["smoke"] = phase_smoke(dev)
-    report["full"] = phase_full(dev)
-    main_res = phase_main(dev, (bitmap_intersect_es, compact_gather))
-    report["main"] = main_res["report"]
+    report["kernels"] = timed("kernels", phase_kernels, dev, rng)
+    report["smoke"] = timed("smoke", phase_smoke, dev)
+    report["full"] = timed("full", phase_full, dev)
+    paths = {"main": timed("main", phase_main, dev, counters)}
+    paths["declat"] = timed("declat", phase_declat, dev, counters)
+    paths["prepost"] = timed("prepost", phase_prepost, dev, counters,
+                             paths["main"])
+    for name, res in paths.items():
+        report[name] = res["report"]
     if args.profile:
-        report["profile"] = profile_main(dev, main_res, Path(args.profile))
-    report["timing"] = phase_timing(dev, main_res)
+        report["profile"] = timed("profile", profile_all, dev, paths["main"],
+                                  paths["declat"], paths["prepost"],
+                                  Path(args.profile))
+    report["timing"] = timed("timing", phase_timing, dev, paths["main"])
+    report["timing"].update(timed("timing_slice2", phase_timing_slice2, dev,
+                                  paths["declat"], paths["prepost"]))
     torch.cuda.synchronize()
     report["phases_s"] = time.perf_counter() - t_start
-    if args.report:
-        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.report).write_text(json.dumps(report, indent=1,
-                                                default=str))
+    say(f"phases took {report['phases_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     kernels = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces, path in KERNELS:
         t = report["timing"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_res["launches"][name],
+            "replaces": replaces, "launches": paths[path]["launches"][name],
             "max_abs_err": max(report["kernels"]["max_abs_err"][name],
                                t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    report["kernel_line"] = kernels
+    if args.report:
+        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.report).write_text(json.dumps(report, indent=1,
+                                                default=str))
     say(smi_line)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -33,13 +33,26 @@ import torch
 WORD_BITS = 32
 DEFAULT_BLOCK_WORDS = 128  # 4096 TIDs per block.
 
-# Pair-chunk width buckets: ``pair_chunk`` is clamped to the largest and
-# autotuned widths (``chunk_width_for``) are taken from this table.
-PAIR_CHUNK_BUCKETS = (64, 256, 1024, 4096, 16384, 65536, 262144)
+# Padding sentinel of N-list ``pre`` values and of unmatched ``out_slot``
+# entries (the N-list pool, ``kernels.ref`` and ``csrc/nlist_merge.cu``).
+NL_SENTINEL = np.iinfo(np.int32).max
 
-# Reference per-pair operand size the ``pair_chunk`` knob is understood to
-# be tuned at (8 blocks x 128 words, the smoke shape); see chunk_width_for.
+# Bucketed N-list lengths: pool extents and gather widths are padded to
+# these; past the largest, sizes go up in powers of two.
+NL_LEN_BUCKETS = (8, 32, 128, 512, 2048, 8192, 32768)
+
+# Pair-chunk width buckets, one table per dispatch family: ``pair_chunk``
+# is clamped to the largest and autotuned widths (``chunk_width_for``)
+# are taken from the table.
+PAIR_CHUNK_BUCKETS = (64, 256, 1024, 4096, 16384, 65536, 262144)
+NL_PAIR_CHUNK_BUCKETS = (64, 256, 1024, 4096, 8192, 32768)
+
+# Reference per-pair operand sizes the ``pair_chunk`` knob is understood
+# to be tuned at (see chunk_width_for): a bitmap pair of 8 blocks x 128
+# words (the smoke shape), an N-list pair whose longest operand sits in
+# the 128-length bucket.
 BITMAP_REF_ROW_WORDS = 1024
+NL_REF_LEN = 128
 
 
 def chunk_width_for(words_per_pair: int, base_chunk: int,
@@ -55,6 +68,32 @@ def chunk_width_for(words_per_pair: int, base_chunk: int,
             width = b
     floor = min(int(base_chunk), bucket_table[-1])
     return max(width, floor)
+
+
+def nl_pad_len(n: int) -> int:
+    """Smallest N-list bucket >= ``n`` (power-of-two fallback past the
+    largest tuned bucket)."""
+    for b in NL_LEN_BUCKETS:
+        if n <= b:
+            return b
+    b = NL_LEN_BUCKETS[-1]
+    while b < n:
+        b *= 2
+    return b
+
+
+def nl_pad_len_np(lengths: np.ndarray) -> np.ndarray:
+    """Vectorized :func:`nl_pad_len` (host): the per-pair length-bucket
+    key the frontier scheduler sorts N-list pairs by."""
+    lengths = np.asarray(lengths, np.int64)
+    buckets = np.asarray(NL_LEN_BUCKETS, np.int64)
+    idx = np.searchsorted(buckets, np.maximum(lengths, 0))
+    out = buckets[np.minimum(idx, len(buckets) - 1)]
+    big = lengths > buckets[-1]
+    if big.any():
+        out = out.copy()
+        out[big] = [nl_pad_len(int(v)) for v in lengths[big]]
+    return out
 
 
 def bucket_pad(arr: np.ndarray, n: int, bucket_sizes: Sequence[int],

@@ -7,9 +7,9 @@ The same flags as ``repro-mine``, plus ``--device {cuda,cpu}`` (default
 ``cuda``; it fails when there is no CUDA device).  ``--input`` reads FIMI
 format (one transaction per line, space-separated item ids);
 ``--dataset`` uses a built-in replica.  ``--minsup`` < 1 is relative,
->= 1 absolute.  This slice of the port runs ``--engine bitmap --scheme
-eclat``; the other engines and schemes exit with the ROADMAP item that
-brings them.
+>= 1 absolute.  Engines: ``bitmap`` (the device engines: ``BitmapMiner``
+for eclat/declat/adaptive, ``DevicePrePost`` for prepost) or ``oracle``
+(the paper's Algorithms 1-3 on the host; ``--device`` does not apply).
 """
 
 from __future__ import annotations
@@ -17,14 +17,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-# What each not-yet-ported choice waits for (ROADMAP, Queue 1).
-_LATER = {
-    ("engine", "oracle"): "the PrePost+ slice (Queue 1 item 9)",
-    ("scheme", "prepost"): "the PrePost+ slice (Queue 1 item 9)",
-    ("scheme", "declat"): "the dEclat/adaptive slice (Queue 1 item 8)",
-    ("scheme", "adaptive"): "the dEclat/adaptive slice (Queue 1 item 8)",
-}
 
 
 def read_fimi(path: str):
@@ -48,9 +40,11 @@ def main(argv=None) -> None:
                     choices=("eclat", "declat", "adaptive", "prepost"),
                     default="eclat")
     ap.add_argument("--diff-density", type=float, default=None,
-                    help="adaptive scheme only (not ported yet)")
+                    help="adaptive scheme: density threshold for the "
+                         "tidset->diffset flip (default 0.5)")
     ap.add_argument("--diff-hysteresis", type=float, default=None,
-                    help="adaptive scheme only (not ported yet)")
+                    help="adaptive scheme: band above the threshold "
+                         "the flip must clear (default 0.05)")
     ap.add_argument("--block-words", type=int, default=8,
                     help="bitmap engine: words per ES block")
     ap.add_argument("--engine", choices=("oracle", "bitmap"),
@@ -65,14 +59,6 @@ def main(argv=None) -> None:
     ap.add_argument("--json-out", default="",
                     help="write all frequent itemsets to a JSON file")
     args = ap.parse_args(argv)
-
-    for key in (("engine", args.engine), ("scheme", args.scheme)):
-        if key in _LATER:
-            ap.exit(2, f"{ap.prog}: --{key[0]} {key[1]} is not ported to "
-                       f"PyTorch yet; it comes with {_LATER[key]}. Use "
-                       f"repro-mine (the JAX package) meanwhile.\n")
-    if args.diff_density is not None:
-        ap.error("--diff-density only applies to --scheme adaptive")
 
     from repro_torch.device import resolve_device
     try:
@@ -92,10 +78,28 @@ def main(argv=None) -> None:
           f"engine={args.engine}, ES={'on' if args.es else 'off'}, "
           f"device={device}", file=sys.stderr)
 
-    from repro_torch.core.eclat import mine_bitmap
-    out, stats = mine_bitmap(db, minsup, scheme=args.scheme,
-                             early_stop=args.es,
-                             block_words=args.block_words, device=device)
+    if args.engine == "bitmap":
+        if args.scheme == "prepost":
+            from repro_torch.core.prepost import mine_prepost_device
+            out, stats = mine_prepost_device(db, minsup, early_stop=args.es,
+                                             device=device)
+        else:
+            from repro_torch.core.eclat import mine_bitmap
+            kw = {}
+            if args.diff_density is not None:
+                kw["diff_density"] = args.diff_density
+            if args.diff_hysteresis is not None:
+                kw["diff_hysteresis"] = args.diff_hysteresis
+            out, stats = mine_bitmap(db, minsup, scheme=args.scheme,
+                                     early_stop=args.es,
+                                     block_words=args.block_words,
+                                     device=device, **kw)
+    else:
+        from repro_torch.core.oracle import mine
+        # The oracle has no adaptive mode; the result set is
+        # scheme-invariant, so eclat is the reference for it.
+        scheme = "eclat" if args.scheme == "adaptive" else args.scheme
+        out, stats = mine(db, minsup, scheme, early_stop=args.es)
 
     print(f"frequent itemsets: {len(out)}", file=sys.stderr)
     print(json.dumps(stats.as_dict(), indent=1), file=sys.stderr)

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface and no PyTorch headers, so they are
-compiled by hand with ``nvcc`` — one ``nvcc -c`` per source, all started
-together, then one link into a shared library — and loaded with
-``ctypes``.  The library is built at first use into
+compiled by hand with ``nvcc`` — one ``nvcc -c`` per ``.cu`` source, all
+started together, then one link into a shared library — and loaded with
+``ctypes``.  Device code shared by two sources lives in a ``.cuh`` header
+beside them (hashed with the sources).  The library is built at first use into
 ``src/repro_torch/_build/<hash>/`` (listed in ``.gitignore``), keyed by a
 hash of the sources and flags, from the package's own sources only.
 
@@ -40,6 +41,12 @@ SIGNATURES = {
     "repro_es_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "repro_compact_gather": (_P, _P, _P, _L, _L, _L, _P),
+    "repro_diff_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "repro_nlist_merge": (_P, _L, _P, _P, _P, _P, _P, _L, _L, _I, _I,
+                          _P, _P, _P, _P, _P, _P, _P),
+    "repro_zmerge_scatter": (_P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _P,
+                             _P),
 }
 
 _lock = threading.Lock()
@@ -64,7 +71,7 @@ def _sources():
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):   # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,22 +1,25 @@
-"""Public wrappers of the main path's kernels (port of the matching
-functions of ``repro.kernels.ops``).
+"""Public wrappers of the port's kernels (port of the matching functions
+of ``repro.kernels.ops``).
 
 Selection goes by the device of the tensors given:
 
 * CPU tensors take the plain PyTorch versions in ``kernels.ref`` (the
   tests and ``device="cpu"`` runs);
 * CUDA tensors launch the Hopper kernels (``kernels.bitmap_intersect``,
-  ``kernels.compact``), or raise — nothing falls back.
+  ``kernels.bitmap_diff``, ``kernels.nlist_merge``, ``kernels.compact``),
+  or raise — nothing falls back.
 
 ``backend`` is kept for API parity with the JAX package: ``"auto"`` (the
 default, the rule above) or ``"plain"``, which forces the plain version
 on CUDA tensors so ``chip_smoke.py`` can hold a kernel against it.  The
 mining path never passes ``"plain"``.
 
-``screen_and_intersect`` is the mining hot path: one launch per pair
-chunk against the device-resident row store, which it updates **in
-place** (the JAX version donates and returns new buffers; the port
-returns the same tensors).  Index columns may be given as host numpy
+``screen_and_intersect`` / ``screen_and_diff`` are the bitmap hot paths:
+one launch per pair chunk against the device-resident row store, which
+they update **in place** (the JAX versions donate and return new
+buffers; the port returns the same tensors).  ``nlist_presize`` +
+``nlist_scatter`` are the PrePost+ hot path over the N-list pool, the
+scatter again in place.  Index columns may be given as host numpy
 arrays: :func:`upload_columns` moves them in one copy, from pinned
 memory without blocking on CUDA.
 """
@@ -28,8 +31,10 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import bitmap_diff as _bd
 from . import bitmap_intersect as _bi
 from . import compact as _compact
+from . import nlist_merge as _nl
 from . import ref as _ref
 
 Tensor = torch.Tensor
@@ -116,6 +121,41 @@ def screen_and_intersect(rows: Tensor, suffix: Tensor, ua, vb, slots,
                                          early_stop=early_stop)
 
 
+def bitmap_diff_es(U: Tensor, V: Tensor, suffix_u: Tensor,
+                   rho_parent: Tensor, minsup: int, *, backend: str = "auto",
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Blocked dEclat difference with zero-block skipping
+    (``ref.bitmap_diff_es_ref`` semantics).  Returns ``(Z, counts,
+    blocks_done, alive)``."""
+    if _use_kernel(U, backend):
+        return _bd.bitmap_diff_es(U, V, suffix_u, rho_parent, int(minsup))
+    return _ref.bitmap_diff_es_ref(U, V, suffix_u, rho_parent, minsup)
+
+
+def screen_and_diff(rows: Tensor, suffix: Tensor, ua, vb, slots,
+                    rho_parent, minsup: int, *, early_stop: bool = True,
+                    backend: str = "auto",
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Fused screen + blocked dEclat difference over a device row store
+    (``ref.screen_and_diff_ref`` semantics, bit for bit): the diffset
+    sibling of :func:`screen_and_intersect`, with the same signature and
+    in-place slab update.  Gated on ``rho - count``; ``blocks_done``
+    charges only nonzero-mass U blocks.  Fed tidset operands it writes
+    the level-2 diffset ``T(a) & ~T(b)``.  Returns ``(rows, suffix,
+    counts, blocks_done, alive)``."""
+    dev = rows.device
+    ua, vb, slots, rho = (_as_i32(x, dev) for x in (ua, vb, slots,
+                                                     rho_parent))
+    minsup = int(minsup)
+    if _use_kernel(rows, backend):
+        cnt, blocks, alive = _bd.screen_and_diff(
+            rows, suffix, ua, vb, slots, rho, minsup,
+            minsup if early_stop else 0)
+        return rows, suffix, cnt, blocks, alive
+    return _ref.screen_and_diff_ref(rows, suffix, ua, vb, slots, rho,
+                                    minsup, early_stop=early_stop)
+
+
 def compact_rows(rows: Tensor, suffix: Tensor, perm, *,
                  backend: str = "auto") -> Tuple[Tensor, Tensor]:
     """Row-store compaction: gather live rows + suffix tables to the
@@ -182,3 +222,113 @@ def screen_pairs(first_u: Tensor, first_v: Tensor, suffix1_u: Tensor,
         return bound, bound >= int(minsup)
     return _ref.screen_pairs_ref(first_u, first_v, suffix1_u, suffix1_v,
                                  rho_parent, minsup, mode=mode)
+
+
+def compact_codes(codes: Tensor, perm, *, backend: str = "auto") -> Tensor:
+    """N-list pool compaction: the compaction gather on the ``(cap, 3)``
+    code slab (``ref.compact_gather_ref``)."""
+    perm = _as_i32(perm, codes.device)
+    if _use_kernel(codes, backend):
+        return _compact.compact_gather(codes, perm)
+    return _ref.compact_gather_ref(codes, perm)
+
+
+# ---------------------------------------------------------------------------
+# N-list (PrePost+) dispatches
+# ---------------------------------------------------------------------------
+
+def nlist_intersect(u_pre: Tensor, u_post: Tensor, u_freq: Tensor,
+                    v_pre: Tensor, v_post: Tensor, v_freq: Tensor, u_len,
+                    v_len, rho_v, minsup: int, *, early_stop: bool = True,
+                    backend: str = "auto",
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Padded-batch N-list merge (``ref.nlist_intersect_ref``), the
+    kernel micro-bench entry: ``(out_slot, support, comparisons, checks,
+    alive)``.  On CUDA the padded rows are laid out as one code slab
+    (U rows, then V rows) and the merge kernel walks it."""
+    dev = u_pre.device
+    u_len, v_len, rho = (_as_i32(x, dev) for x in (u_len, v_len, rho_v))
+    if _use_kernel(u_pre, backend):
+        P, lu = u_pre.shape
+        lv = v_pre.shape[1]
+        codes = torch.cat([
+            torch.stack([u_pre, u_post, u_freq], dim=-1).reshape(-1, 3),
+            torch.stack([v_pre, v_post, v_freq], dim=-1).reshape(-1, 3),
+        ]).to(torch.int32).contiguous()
+        step = torch.arange(P, dtype=torch.int32, device=dev)
+        out_slot, _, support, cmps, checks, alive = _nl.nlist_merge(
+            codes, step * lu, u_len, P * lu + step * lv, v_len, rho,
+            int(minsup), lu=lu, early_stop=early_stop)
+        return out_slot, support, cmps, checks, alive
+    return _ref.nlist_intersect_ref(u_pre, u_post, u_freq, v_pre, v_post,
+                                    v_freq, u_len, v_len, rho, minsup,
+                                    early_stop=early_stop)
+
+
+def nlist_presize(codes: Tensor, u_off, u_len, v_off, v_len, rho_v,
+                  minsup: int, *, lu: int, lv: int, early_stop: bool = True,
+                  backend: str = "auto",
+                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
+                             Tensor]:
+    """Merge-only pre-pass of the PrePost+ extension
+    (``ref.nlist_presize_ref`` semantics, bit for bit): both operands
+    are read from the pool slab by extent offset and merged with the
+    ``z_mass + (rho_V - skip)`` ES guard, and each pair's Z-merge group
+    count is its exact child length.  ``lu`` is the match table's width
+    (``lv`` only sizes the plain version's gather).  Returns
+    ``(out_slot, child_len, support, comparisons, checks, alive)``."""
+    dev = codes.device
+    u_off, u_len, v_off, v_len, rho = (
+        _as_i32(x, dev) for x in (u_off, u_len, v_off, v_len, rho_v))
+    if _use_kernel(codes, backend):
+        return _nl.nlist_merge(codes, u_off, u_len, v_off, v_len, rho,
+                               int(minsup), lu=lu, early_stop=early_stop)
+    return _ref.nlist_presize_ref(codes, u_off, u_len, v_off, v_len, rho,
+                                  minsup, lu=lu, lv=lv,
+                                  early_stop=early_stop)
+
+
+def nlist_scatter(codes: Tensor, out_slot: Tensor, u_off, u_len, v_off,
+                  v_len, out_off, *, lu: int, lv: int, backend: str = "auto",
+                  ) -> Tuple[Tensor, Tensor]:
+    """Scatter pass of the PrePost+ extension (``ref.nlist_scatter_ref``
+    semantics): Z-merge the pre-pass match table and write the child
+    N-lists into the pool at ``out_off``, **in place**; ``out_off >=
+    capacity`` marks a pair to skip.  Returns ``(codes, child_len)``."""
+    dev = codes.device
+    u_off, u_len, v_off, v_len, out_off = (
+        _as_i32(x, dev) for x in (u_off, u_len, v_off, v_len, out_off))
+    if _use_kernel(codes, backend):
+        child_len = _nl.zmerge_scatter(codes, out_slot, u_off, u_len, v_off,
+                                       v_len, out_off)
+        return codes, child_len
+    return _ref.nlist_scatter_ref(codes, out_slot, u_off, u_len, v_off,
+                                  v_len, out_off, lu=lu, lv=lv)
+
+
+def nlist_extend(codes: Tensor, u_off, u_len, v_off, v_len, out_off, rho_v,
+                 minsup: int, *, lu: int, lv: int, early_stop: bool = True,
+                 backend: str = "auto",
+                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
+                            Tensor]:
+    """One-call PrePost+ extension (``ref.nlist_extend_ref`` semantics):
+    merge, then Z-merge + scatter of the pairs whose support clears
+    minsup, in place.  On CUDA: the merge kernel, a device-side gate on
+    ``out_off`` and the scatter kernel.  Returns ``(codes, child_len,
+    support, comparisons, checks, alive)``."""
+    dev = codes.device
+    u_off, u_len, v_off, v_len, out_off, rho = (
+        _as_i32(x, dev) for x in (u_off, u_len, v_off, v_len, out_off,
+                                  rho_v))
+    if _use_kernel(codes, backend):
+        out_slot, child_len, support, cmps, checks, alive = _nl.nlist_merge(
+            codes, u_off, u_len, v_off, v_len, rho, int(minsup), lu=lu,
+            early_stop=early_stop)
+        gated = torch.where(support >= int(minsup), out_off,
+                            int(codes.shape[0])).to(torch.int32)
+        _nl.zmerge_scatter(codes, out_slot, u_off, u_len, v_off, v_len,
+                           gated)
+        return codes, child_len, support, cmps, checks, alive
+    return _ref.nlist_extend_ref(codes, u_off, u_len, v_off, v_len, out_off,
+                                 rho, minsup, lu=lu, lv=lv,
+                                 early_stop=early_stop)

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the main path's kernels (port of the
-matching functions of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the port's kernels (port of the matching
+functions of ``repro.kernels.ref``): the ES scan, the dEclat difference,
+the N-list merge / Z-merge scatter and the compaction gather.
 
 Each function here defines, bit for bit, what its Hopper kernel under
 ``csrc/`` computes.  They run on any device: ``kernels.ops`` takes them
@@ -7,8 +8,8 @@ for CPU tensors (the tests and the CPU entry points), and
 ``chip_smoke.py`` runs them on the card to hold the kernels against.
 
 Bitmaps are int32 tensors holding uint32 bits (see ``core.bitmap``).
-Unlike the jnp refs, the fused dispatch updates the row store **in
-place** and returns the same tensors.
+Unlike the jnp refs, the fused dispatches update the row store (and the
+N-list scatters the code pool) **in place** and return the same tensors.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.bitmap import popcount32, suffix_popcounts
+from repro_torch.core.bitmap import (NL_SENTINEL, popcount32,
+                                     suffix_popcounts)
 
 Tensor = torch.Tensor
 
@@ -80,12 +82,65 @@ def bitmap_intersect_es_ref(U: Tensor, V: Tensor, suffix_u: Tensor,
                             mode=mode)
 
 
+# ---------------------------------------------------------------------------
+# Blocked diffset difference with zero-block skipping (dEclat)
+# ---------------------------------------------------------------------------
+#
+# Z, counts and aliveness are those of ``_blocked_es_scan(mode="andnot")``
+# bit for bit; only the work counter differs: ``blocks_done`` charges only
+# the visited blocks whose U mass ``su[k] - su[k+1]`` is positive (Z = U &
+# ~V is zero wherever U is, so such a block cannot change the count).
+
+
+def _blocked_diff_scan(U: Tensor, V: Tensor, suffix_u: Tensor,
+                       rho_parent: Tensor, thr: Tensor,
+                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Blocked dEclat difference scan on the bound ``rho - count`` with a
+    per-pair threshold ``thr`` (port of ``repro.kernels.ref.
+    _blocked_diff_scan``).  Aliveness is a prefix property, so the
+    visited blocks are ``range(visited)`` of the andnot scan, and the
+    work counter keeps the nonzero-mass ones.  Returns ``(Z, counts,
+    blocks_done, alive)``."""
+    Z, cnt, visited, alive = _blocked_es_scan(
+        U, V, suffix_u, suffix_u, rho_parent, thr, mode="andnot")
+    nb = U.shape[1]
+    mass = suffix_u[:, :-1] - suffix_u[:, 1:]
+    k = torch.arange(nb, device=U.device)
+    blocks = ((k[None, :] < visited[:, None]) & (mass > 0)).sum(dim=1)
+    return Z, cnt, blocks.to(torch.int32), alive
+
+
+def bitmap_diff_es_ref(U: Tensor, V: Tensor, suffix_u: Tensor,
+                       rho_parent: Tensor, minsup,
+                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Blocked dEclat difference ``Z = U & ~V`` with zero-block skipping
+    (``repro.kernels.ref.bitmap_diff_es_ref``).  ``minsup <= 0`` disables
+    early stopping.  Returns ``(Z, counts, blocks_done, alive)``."""
+    thr = torch.full((U.shape[0],), int(minsup), dtype=torch.int32,
+                     device=U.device)
+    return _blocked_diff_scan(U, V, suffix_u, rho_parent, thr)
+
+
 def _survivor_mask(cnt: Tensor, alive: Tensor, rho_parent: Tensor, minsup,
                    *, mode: str) -> Tensor:
     """The scatter gate: a child is materialised iff its exact support
-    clears minsup AND its pair finished the scan alive."""
+    clears minsup AND its pair finished the scan alive (in diff mode a
+    dead pair's frozen count overestimates ``rho - cnt``, so aliveness is
+    load-bearing)."""
     support = cnt if mode == "and" else rho_parent.to(torch.int32) - cnt
     return alive & (support >= int(minsup))
+
+
+def _scatter_children(rows: Tensor, suffix: Tensor, Z: Tensor,
+                      keep: Tensor, slots: Tensor) -> None:
+    """Write the kept children and their suffix tables at ``slots``, in
+    place; slots outside ``[0, capacity)`` are skipped (the explicit mask
+    stands in for JAX's ``mode="drop"``)."""
+    cap = rows.shape[0]
+    keep = keep & (slots >= 0) & (slots < cap)
+    dst = slots[keep].to(torch.int64)
+    rows[dst] = Z[keep]
+    suffix[dst] = suffix_popcounts(Z[keep])
 
 
 def screen_and_intersect_ref(rows: Tensor, suffix: Tensor, ua: Tensor,
@@ -110,12 +165,31 @@ def screen_and_intersect_ref(rows: Tensor, suffix: Tensor, ua: Tensor,
     es_minsup = int(minsup) if early_stop else 0
     Z, cnt, blocks, alive = bitmap_intersect_es_ref(
         U, V, su, sv, rho_parent, es_minsup, mode=mode)
-    cap = rows.shape[0]
-    keep = (_survivor_mask(cnt, alive, rho_parent, minsup, mode=mode)
-            & (slots >= 0) & (slots < cap))
-    dst = slots[keep].to(torch.int64)
-    rows[dst] = Z[keep]
-    suffix[dst] = suffix_popcounts(Z[keep])
+    _scatter_children(rows, suffix, Z,
+                      _survivor_mask(cnt, alive, rho_parent, minsup,
+                                     mode=mode), slots)
+    return rows, suffix, cnt, blocks, alive
+
+
+def screen_and_diff_ref(rows: Tensor, suffix: Tensor, ua: Tensor,
+                        vb: Tensor, slots: Tensor, rho_parent: Tensor,
+                        minsup, *, early_stop: bool = True,
+                        ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Fused screen + blocked dEclat difference over a row store, scatter
+    included (``repro.kernels.ref.screen_and_diff_ref``): the diffset
+    sibling of :func:`screen_and_intersect_ref`, gated on ``rho - count``
+    with the skip-aware work counter.  Fed tidset operands it writes the
+    level-2 diffset ``T(a) & ~T(b)``.  Updates ``rows``/``suffix`` in place
+    and returns them with ``(counts, blocks_done, alive)``."""
+    U = rows.index_select(0, ua)
+    V = rows.index_select(0, vb)
+    su = suffix.index_select(0, ua)
+    es_minsup = int(minsup) if early_stop else 0
+    Z, cnt, blocks, alive = bitmap_diff_es_ref(U, V, su, rho_parent,
+                                               es_minsup)
+    _scatter_children(rows, suffix, Z,
+                      _survivor_mask(cnt, alive, rho_parent, minsup,
+                                     mode="andnot"), slots)
     return rows, suffix, cnt, blocks, alive
 
 
@@ -152,6 +226,190 @@ def screen_pairs_ref(first_u: Tensor, first_v: Tensor, suffix1_u: Tensor,
         raise ValueError(f"bad mode {mode!r}")
     bound = bound.to(torch.int32)
     return bound, bound >= int(minsup)
+
+
+# ---------------------------------------------------------------------------
+# N-list intersection (PrePost+)
+# ---------------------------------------------------------------------------
+#
+# PP-codes are (pre, post, freq) int32 triples; padded batches carry
+# pre = NL_SENTINEL past each row's length.  The merge is the two-pointer
+# walk of ``repro.kernels.ref._nl_merge_vmapped`` with the corrected ES
+# guard ``z_mass + (rho_V - skip) < minsup``.
+
+
+def _nl_merge(u_pre: Tensor, u_post: Tensor, u_freq: Tensor, v_pre: Tensor,
+              v_post: Tensor, v_freq: Tensor, u_len: Tensor, v_len: Tensor,
+              rho_v: Tensor, minsup, *, early_stop: bool,
+              ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Batched two-pointer N-list merge (port of ``_nl_merge_vmapped``).
+
+    Every pair takes one step of its walk per loop iteration, masked once
+    its own loop condition fails, so each pair's comparisons, checks and
+    abort point are exactly the sequential merge's.  Returns ``(out_slot,
+    support, comparisons, checks, alive)``: ``out_slot[p, i]`` is the V
+    index U code ``i`` matched (else ``NL_SENTINEL``); an aborted pair
+    reports support 0."""
+    P, Lu = u_pre.shape
+    Lv = v_pre.shape[1]
+    dev = u_pre.device
+    i32 = torch.int32
+    nu, nv, rho = u_len.to(i32), v_len.to(i32), rho_v.to(i32)
+    minsup = int(minsup)
+    i = torch.zeros(P, dtype=i32, device=dev)
+    j, z_mass, skip, cmps, checks = (torch.zeros_like(i) for _ in range(5))
+    alive = torch.ones(P, dtype=torch.bool, device=dev)
+    # Column Lu of the match table takes the writes of non-matching steps.
+    out_slot = torch.full((P, Lu + 1), NL_SENTINEL, dtype=i32, device=dev)
+    U3 = torch.stack([u_pre, u_post, u_freq], dim=-1).to(i32)
+    V3 = torch.stack([v_pre, v_post, v_freq], dim=-1).to(i32)
+    rows = torch.arange(P, device=dev)
+    dump = torch.full((P,), Lu, dtype=torch.int64, device=dev)
+    n_steps = int((nu + nv).max()) if P and Lu and Lv else 0
+    for step in range(n_steps):
+        act = (i < nu) & (j < nv) & alive
+        if step % 256 == 0 and not bool(act.any()):
+            break
+        ic = i.clamp(0, Lu - 1).long()
+        x, y = U3[rows, ic], V3[rows, j.clamp(0, Lv - 1).long()]
+        is_desc = (x[:, 0] > y[:, 0]) & (x[:, 1] < y[:, 1])
+        adv = is_desc | (x[:, 0] <= y[:, 0])
+        match = act & is_desc
+        out_slot[rows, torch.where(match, ic, dump)] = j
+        cmps += act
+        z_mass += torch.where(match, x[:, 2], 0)
+        skipped = act & ~adv
+        skip += torch.where(skipped, y[:, 2], 0)
+        checks += skipped
+        if early_stop:
+            alive &= ~(act & (z_mass + (rho - skip) < minsup))
+        i += act & adv
+        j += skipped
+    support = torch.where(alive, z_mass, 0)
+    return out_slot[:, :Lu].contiguous(), support, cmps, checks, alive
+
+
+def nlist_intersect_ref(u_pre: Tensor, u_post: Tensor, u_freq: Tensor,
+                        v_pre: Tensor, v_post: Tensor, v_freq: Tensor,
+                        u_len: Tensor, v_len: Tensor, rho_v: Tensor, minsup,
+                        *, early_stop: bool = True,
+                        ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Padded-batch N-list merge (``repro.kernels.ref.nlist_intersect_ref``):
+    ``(out_slot, support, comparisons, checks, alive)``."""
+    return _nl_merge(u_pre, u_post, u_freq, v_pre, v_post, v_freq, u_len,
+                     v_len, rho_v, minsup, early_stop=early_stop)
+
+
+def _nl_gather(codes: Tensor, off: Tensor, length: Tensor, width: int,
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Padded ``(pre, post, freq)`` rows ``(P, width)`` gathered from the
+    pool slab ``codes (cap, 3)`` by extent offset; pre is the sentinel
+    (post, freq 0) past each row's length."""
+    cap = codes.shape[0]
+    k = torch.arange(width, device=codes.device)
+    idx = (off.to(torch.int64)[:, None] + k[None, :]).clamp(0, cap - 1)
+    mask = k[None, :] < length[:, None]
+    g = codes[idx]
+    return (torch.where(mask, g[..., 0], NL_SENTINEL),
+            torch.where(mask, g[..., 1], 0),
+            torch.where(mask, g[..., 2], 0))
+
+
+def _nl_group_starts(out_slot: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Z-merge groups (Alg. 3 line 31): matched slots are non-decreasing,
+    so a group starts where the slot exceeds the running maximum of the
+    earlier matched slots.  Returns ``(valid, start, child_len)``."""
+    P = out_slot.shape[0]
+    valid = out_slot != NL_SENTINEL
+    js = torch.where(valid, out_slot, -1)
+    running = torch.cummax(js, dim=1).values
+    prev = torch.cat([torch.full((P, 1), -1, dtype=js.dtype,
+                                 device=js.device), running[:, :-1]], dim=1)
+    start = valid & (out_slot != prev)
+    return valid, start, start.sum(dim=1).to(torch.int32)
+
+
+def _nl_zmerge_scatter(codes: Tensor, out_slot: Tensor, u_freq: Tensor,
+                       v_pre: Tensor, v_post: Tensor, out_off: Tensor,
+                       ) -> Tuple[Tensor, Tensor]:
+    """Z-merge + child scatter into the pool, in place: group ``g`` of
+    pair ``p`` (U frequencies summed, the representative V code's pre and
+    post) is written at ``out_off[p] + g``; destinations outside ``[0,
+    capacity)`` are skipped (JAX's ``mode="drop"``).  Returns ``(codes,
+    child_len)``."""
+    P, Lu = out_slot.shape
+    cap = codes.shape[0]
+    valid, start, child_len = _nl_group_starts(out_slot)
+    gid = start.to(torch.int64).cumsum(dim=1) - 1
+    dump = torch.full_like(gid, Lu)                    # dropped column
+    zfreq = torch.zeros((P, Lu + 1), dtype=torch.int32, device=codes.device)
+    zfreq.scatter_add_(1, torch.where(valid, gid, dump),
+                       torch.where(valid, u_freq.to(torch.int32), 0))
+    rep = torch.zeros((P, Lu + 1), dtype=torch.int64, device=codes.device)
+    rep.scatter_(1, torch.where(start, gid, dump),
+                 torch.where(start, out_slot.to(torch.int64), 0))
+    rep = rep[:, :Lu]
+    child = torch.stack([v_pre.gather(1, rep), v_post.gather(1, rep),
+                         zfreq[:, :Lu]], dim=-1).to(torch.int32)
+    k = torch.arange(Lu, device=codes.device)
+    dest = out_off.to(torch.int64)[:, None] + k[None, :]
+    keep = (k[None, :] < child_len[:, None]) & (dest >= 0) & (dest < cap)
+    codes[dest[keep]] = child[keep]
+    return codes, child_len
+
+
+def nlist_presize_ref(codes: Tensor, u_off: Tensor, u_len: Tensor,
+                      v_off: Tensor, v_len: Tensor, rho_v: Tensor, minsup,
+                      *, lu: int, lv: int, early_stop: bool = True,
+                      ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
+                                 Tensor]:
+    """Merge-only pre-pass (``repro.kernels.ref.nlist_presize_ref``):
+    gather both operands from the pool, merge, count the Z-merge groups.
+    Returns ``(out_slot, child_len, support, comparisons, checks,
+    alive)``."""
+    u_pre, u_post, u_freq = _nl_gather(codes, u_off, u_len, lu)
+    v_pre, v_post, v_freq = _nl_gather(codes, v_off, v_len, lv)
+    out_slot, support, cmps, checks, alive = _nl_merge(
+        u_pre, u_post, u_freq, v_pre, v_post, v_freq, u_len, v_len, rho_v,
+        minsup, early_stop=early_stop)
+    _, _, child_len = _nl_group_starts(out_slot)
+    return out_slot, child_len, support, cmps, checks, alive
+
+
+def nlist_scatter_ref(codes: Tensor, out_slot: Tensor, u_off: Tensor,
+                      u_len: Tensor, v_off: Tensor, v_len: Tensor,
+                      out_off: Tensor, *, lu: int, lv: int,
+                      ) -> Tuple[Tensor, Tensor]:
+    """Scatter pass (``repro.kernels.ref.nlist_scatter_ref``): Z-merge the
+    pre-pass match table into the pool at ``out_off``, in place.
+    Returns ``(codes, child_len)``."""
+    _, _, u_freq = _nl_gather(codes, u_off, u_len, lu)
+    v_pre, v_post, _ = _nl_gather(codes, v_off, v_len, lv)
+    return _nl_zmerge_scatter(codes, out_slot, u_freq, v_pre, v_post,
+                              out_off)
+
+
+def nlist_extend_ref(codes: Tensor, u_off: Tensor, u_len: Tensor,
+                     v_off: Tensor, v_len: Tensor, out_off: Tensor,
+                     rho_v: Tensor, minsup, *, lu: int, lv: int,
+                     early_stop: bool = True,
+                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
+                                Tensor]:
+    """One-dispatch PrePost+ extension (``repro.kernels.ref.
+    nlist_extend_ref``): merge, then Z-merge + scatter for pairs whose
+    support clears minsup.  In place; returns ``(codes, child_len,
+    support, comparisons, checks, alive)``."""
+    u_pre, u_post, u_freq = _nl_gather(codes, u_off, u_len, lu)
+    v_pre, v_post, v_freq = _nl_gather(codes, v_off, v_len, lv)
+    out_slot, support, cmps, checks, alive = _nl_merge(
+        u_pre, u_post, u_freq, v_pre, v_post, v_freq, u_len, v_len, rho_v,
+        minsup, early_stop=early_stop)
+    cap = codes.shape[0]
+    out_off = torch.where(support >= int(minsup), out_off.to(torch.int32),
+                          cap)
+    codes, child_len = _nl_zmerge_scatter(codes, out_slot, u_freq, v_pre,
+                                          v_post, out_off)
+    return codes, child_len, support, cmps, checks, alive
 
 
 def compact_gather_ref(slab: Tensor, perm: Tensor) -> Tensor:

@@ -13,10 +13,14 @@ import torch
 
 from repro_torch.core.bitmap import suffix_popcounts
 from repro_torch.core.eclat import mine_bitmap
-from repro_torch.data.transactions import gen_powerlaw_baskets
+from repro_torch.core.prepost import mine_prepost_device
+from repro_torch.data.transactions import (gen_dense_tabular,
+                                           gen_powerlaw_baskets)
 from repro_torch.kernels import ops
+from repro_torch.kernels.bitmap_diff import bitmap_diff_es
 from repro_torch.kernels.bitmap_intersect import bitmap_intersect_es
 from repro_torch.kernels.compact import compact_gather
+from repro_torch.kernels.nlist_merge import nlist_merge, zmerge_scatter
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +114,108 @@ def test_purity_guard_raises_on_a_host_sync(cuda_device):
         with host_sync("test readback"):
             assert x.sum().item() == 4.0
     assert torch.cuda.get_sync_debug_mode() == before
+
+
+@pytest.mark.parametrize("nb,bw", [(9, 1), (7, 8), (3, 128), (84, 128)])
+def test_diff_kernel_matches_plain(cuda_device, nb, bw):
+    rng = np.random.default_rng(3)
+    U, V = _rows(rng, 17, nb, bw, cuda_device), _rows(rng, 17, nb, bw,
+                                                      cuda_device)
+    U[::3, nb // 2] = 0                              # zero-mass U blocks
+    su = suffix_popcounts(U)
+    rho = su[:, 0].contiguous()
+    before = bitmap_diff_es.launches
+    for minsup in (-1, 0, 1, nb * bw * 4, nb * bw * 8):
+        got = ops.bitmap_diff_es(U, V, su, rho, minsup)
+        want = ops.bitmap_diff_es(U, V, su, rho, minsup, backend="plain")
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w), minsup
+    assert bitmap_diff_es.launches == before + 5
+
+
+@pytest.mark.parametrize("es", [True, False])
+def test_fused_diff_kernel_matches_plain(cuda_device, es):
+    rng = np.random.default_rng(4)
+    slab = _rows(rng, 40, 5, 8, cuda_device)
+    slab[:8, 2] = 0
+    suf = suffix_popcounts(slab)
+    ua = np.arange(0, 10, dtype=np.int32)
+    vb = np.arange(5, 15, dtype=np.int32)
+    slots = np.arange(20, 30, dtype=np.int32)
+    slots[-1] = 40                                  # skipped
+    rho = suf[torch.from_numpy(ua).long().to(cuda_device), 0].cpu().numpy()
+    for minsup in (1, 100, 200):
+        rk, sk, rp, sp = slab.clone(), suf.clone(), slab.clone(), suf.clone()
+        got = ops.screen_and_diff(rk, sk, ua, vb, slots, rho, minsup,
+                                  early_stop=es)
+        want = ops.screen_and_diff(rp, sp, ua, vb, slots, rho, minsup,
+                                   early_stop=es, backend="plain")
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w), minsup
+
+
+def _pool(rng, cap, extents, dev):
+    codes = np.stack([rng.integers(0, 1000, cap), rng.integers(0, 1000, cap),
+                      rng.integers(1, 20, cap)], axis=1).astype(np.int32)
+    for off, ln in extents:
+        seg = codes[off:off + ln]
+        codes[off:off + ln] = seg[np.argsort(seg[:, 0], kind="stable")]
+    return torch.from_numpy(codes).to(dev)
+
+
+@pytest.mark.parametrize("es", [True, False])
+def test_nlist_kernels_match_plain(cuda_device, es):
+    rng = np.random.default_rng(5)
+    cap, P, lu, lv = 4096, 300, 32, 128
+    u_off = rng.integers(0, 1024, P).astype(np.int32)
+    v_off = rng.integers(1024, 2048 - lv, P).astype(np.int32)
+    u_len = rng.integers(0, lu + 1, P).astype(np.int32)
+    v_len = rng.integers(0, lv + 1, P).astype(np.int32)
+    codes = _pool(rng, cap, list(zip(u_off, u_len)) + list(zip(v_off, v_len)),
+                  cuda_device)
+    rho = rng.integers(0, 200, P).astype(np.int32)
+    m0, s0 = nlist_merge.launches, zmerge_scatter.launches
+    for minsup in (0, 1, 20, 150):
+        got = ops.nlist_presize(codes, u_off, u_len, v_off, v_len, rho,
+                                minsup, lu=lu, lv=lv, early_stop=es)
+        want = ops.nlist_presize(codes, u_off, u_len, v_off, v_len, rho,
+                                 minsup, lu=lu, lv=lv, early_stop=es,
+                                 backend="plain")
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w), minsup
+        out_off = (2048 + lu * np.arange(P)).astype(np.int32)
+        out_off[::7] = cap + 1                       # skipped
+        ck, cp = codes.clone(), codes.clone()
+        a = ops.nlist_scatter(ck, got[0], u_off, u_len, v_off, v_len,
+                              out_off, lu=lu, lv=lv)
+        b = ops.nlist_scatter(cp, want[0], u_off, u_len, v_off, v_len,
+                              out_off, lu=lu, lv=lv, backend="plain")
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        ck, cp = codes.clone(), codes.clone()
+        a = ops.nlist_extend(ck, u_off, u_len, v_off, v_len, out_off, rho,
+                             minsup, lu=lu, lv=lv, early_stop=es)
+        b = ops.nlist_extend(cp, u_off, u_len, v_off, v_len, out_off, rho,
+                             minsup, lu=lu, lv=lv, early_stop=es,
+                             backend="plain")
+        for g, w in zip(a, b, strict=True):
+            assert torch.equal(g, w), minsup
+    assert nlist_merge.launches == m0 + 8
+    assert zmerge_scatter.launches == s0 + 8
+
+
+@pytest.mark.parametrize("scheme", ["declat", "adaptive", "prepost"])
+def test_slice2_engines_on_card_equal_cpu(cuda_device, scheme):
+    db = gen_dense_tabular(n_trans=500, n_cols=9, vals_per_col=4, seed=0)
+    if scheme == "prepost":
+        run = lambda dev: mine_prepost_device(db, 175, device=dev)  # noqa
+    else:
+        kw = (dict(block_words=1, diff_density=0.3, diff_hysteresis=0.05)
+              if scheme == "adaptive" else dict(block_words=8))
+        run = lambda dev: mine_bitmap(db, 175, scheme, device=dev,  # noqa
+                                      **kw)
+    out_c, st_c = run(cuda_device)
+    out_p, st_p = run("cpu")
+    assert out_c == out_p and len(out_c) == 321
+    times = {"runtime_s", "assemble_s", "resolve_s"}
+    assert ({k: v for k, v in st_c.as_dict().items() if k not in times}
+            == {k: v for k, v in st_p.as_dict().items() if k not in times})
