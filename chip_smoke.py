@@ -3,17 +3,22 @@
 
     python3 chip_smoke.py                      # every phase (one CUDA device)
     python3 chip_smoke.py --report out.json    # also write the numbers there
-    python3 chip_smoke.py --profile traces/    # also profile one main-path run
+    python3 chip_smoke.py --profile traces/    # also profile each path
+    python3 chip_smoke.py --seed 3             # serving phases' seed
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
 
-1. holds every kernel against its plain PyTorch version on the card, bit
-   for bit: the ES scan (both modes, ES on/off, minsup <= 0, bw 1/8/128
+1. holds every kernel against its plain PyTorch version on the card: bit
+   for bit the ES scan (both modes, ES on/off, minsup <= 0, bw 1/8/128
    up to 242 blocks), the dEclat difference (zero-mass U blocks, nb up
    to 84 and 242), both fused dispatches with untouched non-survivor and
    out-of-range slots, the N-list merge and Z-merge scatter (lengths 0,
    1, every bucket edge and 32769; whole pool slabs equal) and the
-   compaction gather (rows, suffix tables, (cap, 3) codes);
+   compaction gather (rows, suffix tables, (cap, 3) codes); flash
+   attention within 2e-5 (fp32) and 3e-2 (bf16) on the sweep of
+   ``tests/test_kernels.py`` plus ragged lengths and Sq != Skv; the
+   EmbeddingBag within 1e-5 (bool and int32 masks, an all-masked bag,
+   the scalar path, a 2,000,000 x 256 table);
 2. mines the three smoke regimes, ES on and off, and requires every
    counter of ``benchmarks/baselines/BENCH_smoke.json``: eclat at
    block_words=8, adaptive at its baseline knobs, PrePost+;
@@ -31,14 +36,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    lists from the same seeded stream, a host PPC-tree (its item supports
    equal to the BitmapDB's), ``DevicePrePost`` ES on and off against the
    main path's itemset map, and minsup 19,800 against the CPU path;
-7. holds each path's first dispatch at real size against its plain
-   version, then times every kernel with CUDA events at those shapes,
-   beside its bound, its plain version and (compaction) a library call.
+7. serves qwen1.5-0.5b at full width (bf16, seeded weights, 8 prompts
+   of 2048 tokens, 32 new tokens through ``serve_greedy``; one flash
+   launch per layer), holds layer 0's attention at that shape against
+   the plain version, and runs the same widths in fp32 through the
+   kernel and the plain path (equal tokens, logits within 1e-3);
+8. runs full-size two-tower retrieval (5M x 256 and 2M x 256 tables):
+   ``retrieval_scores`` for 1 user over 1,000,000 candidates (top-100 ids
+   equal to the plain path's, scores recounted) and ``user_embed`` for
+   512 users;
+9. holds each mining path's first dispatch at real size against its
+   plain version, then times every kernel with CUDA events at its path's
+   shapes, beside its bound, its plain version and, where one PyTorch
+   call computes the same function, that call.
 
 Every path runs with every kernel's launch count set to 0 just before
 and read just after; a path that launched one of its kernels no time
-fails.  ``--profile DIR`` adds one profiled run of the three real-size
-paths (device busy time against the host wall).
+fails.  ``--profile DIR`` adds one profiled run of each real-size path
+(device busy time against the host wall).
 
 It prints the card's name and power limit, a ``kernels`` JSON line and,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -48,7 +63,9 @@ before that line.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -64,6 +81,8 @@ BASELINES = ROOT / "benchmarks" / "baselines"
 # peak for the kernels' 32-bit integer operations.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# Dense bf16 tensor-core rate: the peak for attention's bf16 products.
+PEAK_BF16_FLOPS = 989e12
 
 SMOKE_KEYS = ("word_ops", "word_ops_full", "device_calls", "peak_rows",
               "scatter_words", "compactions", "screened_out",
@@ -220,9 +239,99 @@ def phase_kernels(dev, rng) -> dict:
     _check_diff(dev, rows, agree)
     _check_nlists(dev, rng, agree)
     _check_nlist_intersect(dev, rng, agree)
+
+    def close(name, got, want, tol, what):
+        need(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype,
+             f"{name}: {what}: {got.dtype} {tuple(got.shape)} != "
+             f"{want.dtype} {tuple(want.shape)}")
+        e = ((got.float() - want.float()).abs().max().item()
+             if got.numel() else 0.0)
+        err[name] = max(err[name], e)
+        n_checks[name] += 1
+        need(e < tol, f"{name} disagrees with its plain version: {what} "
+                      f"(max abs err {e}, tolerance {tol})")
+
+    _check_flash(dev, close)
+    _check_bag(dev, rng, close)
     torch.cuda.synchronize()
     say(f"phase kernels: ok — {n_checks} comparisons, max abs err {err}")
     return {"max_abs_err": err, "checks": n_checks}
+
+
+# B, Sq, Skv, H, KH, D, Dv, causal, dtype, tolerance: the sweep of
+# tests/test_kernels.py:520-524 (its tolerances: fp32 2e-5, bf16 3e-2),
+# then ragged lengths, Sq != Skv both ways, and bf16 at a ragged length.
+FLASH_CASES = (
+    (2, 128, 128, 4, 2, 32, 32, True, "float32", 2e-5),
+    (1, 256, 256, 8, 8, 64, 64, True, "float32", 2e-5),
+    (2, 128, 256, 4, 1, 32, 16, False, "float32", 2e-5),
+    (1, 128, 128, 4, 4, 128, 128, True, "float32", 2e-5),
+    (1, 128, 128, 4, 2, 32, 32, True, "bfloat16", 3e-2),
+    (1, 1, 1, 2, 1, 16, 16, True, "float32", 2e-5),
+    (2, 65, 65, 4, 2, 32, 32, True, "float32", 2e-5),
+    (1, 200, 200, 4, 4, 64, 64, True, "float32", 2e-5),
+    (1, 70, 130, 4, 2, 32, 24, False, "float32", 2e-5),
+    (1, 130, 70, 2, 2, 16, 16, True, "float32", 2e-5),
+    (1, 200, 200, 16, 16, 64, 64, True, "bfloat16", 3e-2),
+)
+
+
+def _check_flash(dev, close) -> None:
+    """flash_attention against its plain version (dense fp32 softmax)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for B, Sq, Skv, H, KH, D, Dv, causal, dtype, tol in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((B, Sq, H, D), (B, Skv, KH, D),
+                                 (B, Skv, KH, Dv)))
+        close("flash_attention", ops.flash_attention(q, k, v, causal=causal),
+              ops.flash_attention(q, k, v, causal=causal, backend="plain"),
+              tol, f"B={B} Sq={Sq} Skv={Skv} H={H} KH={KH} D={D} Dv={Dv} "
+                   f"causal={causal} {dtype}")
+
+
+def _check_bag(dev, rng, close) -> None:
+    """embedding_bag against its plain version: the sweep of
+    tests/test_kernels.py:543-545 (bool and int32 masks), an all-masked
+    bag, a width that is not a multiple of 4 (the scalar path), and the
+    two-tower item table (2,000,000 x 256) with Zipf history bags."""
+    import torch
+    from repro_torch.data.recsys_data import twotower_batch
+    from repro_torch.kernels import ops
+
+    def one(table, ids, mask, comb, what):
+        for m in (mask, mask.to(torch.int32)):
+            close("embedding_bag",
+                  ops.embedding_bag(table, ids, m, combiner=comb),
+                  ops.embedding_bag(table, ids, m, combiner=comb,
+                                    backend="plain"), 1e-5,
+                  f"{what} {comb} mask {m.dtype}")
+
+    for V, D, B, L, comb in ((100, 16, 8, 5, "mean"), (64, 32, 16, 9, "sum"),
+                             (257, 8, 4, 3, "mean"), (1000, 64, 8, 20, "mean"),
+                             (300, 6, 33, 7, "sum")):
+        table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32))
+        ids = torch.from_numpy(rng.integers(0, V, (B, L)).astype(np.int32))
+        mask = torch.from_numpy(rng.random((B, L)) < 0.8)
+        one(table.to(dev), ids.to(dev), mask.to(dev), comb,
+            f"V={V} D={D} B={B} L={L}")
+    ones = torch.ones((8, 4), device=dev)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    mask = torch.tensor([[False] * 3, [True] * 3], device=dev)
+    got = ops.embedding_bag(ones, ids, mask, combiner="mean")
+    need(torch.equal(got, torch.tensor([[0.0] * 4, [1.0] * 4], device=dev)),
+         f"embedding_bag: all-masked bag gives {got[0].tolist()}")
+    one(ones, ids, mask, "mean", "all-masked bag")
+    V, D = 2_000_000, 256
+    table = torch.randn((V, D), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    b = twotower_batch(7, 512, 5_000_000, V, 50)
+    one(table, torch.from_numpy(b["hist_ids"]).to(dev),
+        torch.from_numpy(b["hist_mask"]).to(dev), "mean",
+        f"table {V} x {D}, 512 Zipf bags of 50")
 
 
 def _check_diff(dev, rows, agree) -> None:
@@ -823,6 +932,205 @@ def phase_prepost(dev, counters, main) -> dict:
             "report": report}
 
 
+# ---------------------------------------------------------------------------
+# serving paths: qwen1.5-0.5b greedy serving, two-tower retrieval
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+
+
+def _quiet(*_):
+    pass
+
+
+def phase_serve(dev, counters, seed) -> dict:
+    """qwen1.5-0.5b at full width (24 layers, d 1024, 16 heads of 64,
+    d_ff 2816, vocab 151,936, bf16; seeded random weights): 8 prompts of
+    2048 tokens, then 32 new tokens through ``serve_greedy``.  Layer 0's
+    attention at this shape against the plain version; the same widths in
+    fp32 through the kernel and the plain path (equal greedy tokens,
+    prefill logits within 1e-3); the bf16 plain path's agreement is
+    reported, not gated (a bf16 model can flip a near-tie)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_greedy
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("qwen1.5-0.5b").config_fn()
+    B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    serve_greedy(cfg, prompts[:, :64], 2, model=model, device=dev,
+                 log_fn=_quiet)                          # warm-up
+    timings = {}
+
+    def run():
+        return serve_greedy(cfg, prompts, new, model=model, device=dev,
+                            timings=timings, log_fn=say)
+
+    gen, wall, launches = _launches(counters, run)
+    need(launches["flash_attention"] == cfg.n_layers,
+         f"serve: prefill launched flash_attention "
+         f"{launches['flash_attention']} times, not {cfg.n_layers}")
+    need(gen.shape == (B, new) and gen.min() >= 0
+         and gen.max() < cfg.padded_vocab, f"serve: bad tokens {gen.shape}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    # Layer 0's attention at this shape, kernel against plain.
+    tokens = torch.from_numpy(prompts).to(dev)
+    lp = model.layers[0]
+    h = L.rmsnorm(lp.attn_norm, model.embed.table[tokens.long()],
+                  cfg.norm_eps)
+    q, k, v = L._qkv(lp.attn, h, cfg.param_dtype)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    o_k = ops.flash_attention(q, k, v)
+    o_p = ops.flash_attention(q, k, v, backend="plain")
+    need(bool(torch.isfinite(o_k.float()).all().item()),
+         "serve: layer-0 attention not finite")
+    attn_err = (o_k.float() - o_p.float()).abs().max().item()
+    need(attn_err < 3e-2, f"serve: layer-0 attention at {tuple(q.shape)} "
+                          f"disagrees with its plain version ({attn_err})")
+    del h, o_k, o_p
+    gen_p = serve_greedy(cfg, prompts, new, model=model, device=dev,
+                         backend="plain", log_fn=_quiet)
+    rows_agree = int((gen == gen_p).all(axis=1).sum())
+    tok_agree = int((gen == gen_p).sum())
+
+    # fp32 at the same widths: the kernel path against the plain path.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = T.init_params(cfg32, seed=seed, device=dev)
+    logit_k, cache = T.prefill(model32, cfg32, tokens)
+    del cache
+    logit_p, cache = T.prefill(model32, cfg32, tokens, backend="plain")
+    del cache
+    need(bool(torch.isfinite(logit_k).all().item()),
+         "serve fp32: prefill logits not finite")
+    logit_err = (logit_k - logit_p).abs().max().item()
+    need(logit_err < 1e-3, f"serve fp32: prefill logits kernel vs plain "
+                           f"{logit_err}")
+    t32 = {}
+    g32 = serve_greedy(cfg32, prompts, new, model=model32, device=dev,
+                       timings=t32, log_fn=say)
+    g32_p = serve_greedy(cfg32, prompts, new, model=model32, device=dev,
+                         backend="plain", log_fn=_quiet)
+    need(np.array_equal(g32, g32_p), "serve fp32: greedy tokens differ "
+         f"between the kernel and the plain path "
+         f"({int((g32 != g32_p).sum())} of {g32.size})")
+    del model32, logit_k, logit_p
+    torch.cuda.empty_cache()
+    say(f"phase serve: qwen1.5-0.5b ({n_params} params, bf16) {B} x {S} "
+        f"prompt + {new} new: prefill {timings['prefill_s'] * 1e3:.3f} ms, "
+        f"decode {timings['decode_ms_per_token']:.4f} ms/token, "
+        f"{timings['tokens_per_s']:.2f} tok/s, flash launches "
+        f"{launches['flash_attention']}; layer-0 attention err {attn_err}; "
+        f"bf16 plain path agrees on {rows_agree}/{B} rows ({tok_agree}/"
+        f"{gen.size} tokens); fp32 logits err {logit_err}, fp32 tokens "
+        f"equal; fp32 prefill {t32['prefill_s'] * 1e3:.3f} ms")
+    return {"cfg": cfg, "model": model, "prompts": prompts,
+            "qkv": (q, k, v), "launches": launches, "report": {
+                "arch": cfg.name, "params": n_params, "batch": B,
+                "prompt": S, "new_tokens": new, "init_s": init_s,
+                "wall_s": wall, **timings, "peak_alloc_gb": peak_gb,
+                "launches": launches, "layer0_attn_err": attn_err,
+                "bf16_plain_rows_agree": rows_agree,
+                "bf16_plain_tokens_agree": tok_agree,
+                "fp32_logit_err": logit_err, "fp32": t32}}
+
+
+def phase_retrieval(dev, counters, seed) -> dict:
+    """two-tower-retrieval at full size (5M x 256 user and 2M x 256 item
+    tables, towers 1024-512-256, fp32; seeded random weights):
+    ``retrieval_scores`` at the ``retrieval_cand`` shape (1 user from
+    ``twotower_batch``, 1,000,000 distinct candidates, top 100) and
+    ``user_embed`` at ``serve_p99``'s 512 users, each against the plain
+    path."""
+    import torch
+    from repro_torch.configs import RECSYS_SHAPES, get_arch
+    from repro_torch.data.recsys_data import twotower_batch
+    from repro_torch.models import recsys as R
+
+    cfg = get_arch("two-tower-retrieval").config_fn()
+    cand_dims = RECSYS_SHAPES["retrieval_cand"].dims
+    n_p99 = RECSYS_SHAPES["serve_p99"].dims["batch"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = R.twotower_init(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def user_args(b):
+        return [torch.from_numpy(b[k]).to(dev)
+                for k in ("user_id", "hist_ids", "hist_mask")]
+
+    args = user_args(twotower_batch(seed, cand_dims["batch"], cfg.n_users,
+                                    cfg.n_items, cfg.n_user_hist))
+    cand = torch.from_numpy(np.random.default_rng(seed).permutation(
+        cfg.n_items)[:cand_dims["n_candidates"]].astype(np.int32)).to(dev)
+
+    def run(backend="auto"):
+        return R.retrieval_scores(model, cfg, *args, cand, topk=100,
+                                  backend=backend)
+
+    run()                                                # warm-up
+    (vals, idx), wall, launches = _launches(counters, run)
+    need(launches["embedding_bag"] >= 1,
+         "retrieval: embedding_bag was not launched")
+    walls = [wall] + [_launches(counters, run)[1] for _ in range(4)]
+    vals_p, idx_p = run("plain")
+    need(torch.equal(idx, idx_p), "retrieval: top-100 ids differ between "
+                                  "the kernel and the plain path")
+    val_err = (vals - vals_p).abs().max().item()
+    need(val_err <= 1e-5, f"retrieval: top-100 values differ ({val_err})")
+    need(bool(torch.isfinite(vals).all().item())
+         and bool((vals[:, :-1] >= vals[:, 1:]).all().item())
+         and vals.abs().max().item() <= 1 + 1e-5,
+         "retrieval: scores not finite, sorted cosines")
+    # The winners' scores recounted from the towers one by one.
+    u = R.user_embed(model, cfg, *args, backend="plain")
+    recount = R.item_embed(model, cfg, cand[idx[0]]) @ u[0]
+    rec_err = (recount - vals[0]).abs().max().item()
+    need(rec_err <= 1e-5, f"retrieval: recounted top-100 scores differ "
+                          f"({rec_err})")
+
+    a99 = user_args(twotower_batch(seed + 1, n_p99, cfg.n_users,
+                                   cfg.n_items, cfg.n_user_hist))
+
+    def embed99(backend="auto"):
+        return R.user_embed(model, cfg, *a99, backend=backend)
+
+    embed99()                                            # warm-up
+    u99, wall99, launches99 = _launches(counters, embed99)
+    walls99 = [wall99] + [_launches(counters, embed99)[1] for _ in range(4)]
+    need(launches99["embedding_bag"] == 1,
+         "serve_p99: embedding_bag was not launched once")
+    u_err = (u99 - embed99("plain")).abs().max().item()
+    need(u_err <= 1e-5, f"serve_p99: user_embed kernel vs plain {u_err}")
+    say(f"phase retrieval: two-tower (init {init_s:.2f} s) retrieval_cand "
+        f"1 x {cand.numel()} top-100: walls {[w * 1e3 for w in walls]} ms, "
+        f"bag launches {launches['embedding_bag']}, ids equal, value err "
+        f"{val_err}, recount err {rec_err}; serve_p99 user_embed x "
+        f"{n_p99}: walls {[w * 1e3 for w in walls99]} ms, err {u_err}")
+    return {"cfg": cfg, "model": model, "run": run, "embed99": embed99,
+            "launches": launches, "report": {
+                "init_s": init_s, "candidates": int(cand.numel()),
+                "walls_s": walls, "launches": launches,
+                "top100_value_err": val_err, "recount_err": rec_err,
+                "serve_p99": {"batch": n_p99, "walls_s": walls99,
+                              "launches": launches99, "err": u_err}}}
+
+
 def profile_path(name: str, run, trace_dir: Path) -> dict:
     """One more run of a path under ``torch.profiler`` (``--profile DIR``):
     device busy time (the union of kernel, memcpy and memset intervals in
@@ -857,6 +1165,10 @@ def profile_path(name: str, run, trace_dir: Path) -> dict:
             busy_us += hi - max(lo, end)
             end = hi
     busy_ms = busy_us / 1e3
+    with open(path, "rb") as raw, gzip.open(f"{path}.gz", "wb") as gz:
+        shutil.copyfileobj(raw, gz)                # traces run to ~100 MB
+    path.unlink()
+    path = Path(f"{path}.gz")
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": (1 - busy_ms / wall_ms) if spans else None,
            "by_name": {k: {"count": n, "ms": t}
@@ -870,10 +1182,12 @@ def profile_path(name: str, run, trace_dir: Path) -> dict:
     return out
 
 
-def profile_all(dev, main, declat, prepost, trace_dir: Path) -> dict:
-    """``--profile``: the main path, the dEclat path and the PrePost+
-    path, each once more under the profiler; plus the main path's slab
-    set-up alone."""
+def profile_all(dev, main, declat, prepost, serve, retrieval,
+                trace_dir: Path) -> dict:
+    """``--profile``: the main path, the dEclat path, the PrePost+ path,
+    the serve path and the two retrieval shapes, each once more under the
+    profiler; plus the main path's slab set-up alone."""
+    from repro_torch.launch.serve import serve_greedy
     import torch
     from repro_torch.core.eclat import BitmapMiner
     from repro_torch.core.prepost import DevicePrePost
@@ -901,7 +1215,16 @@ def profile_all(dev, main, declat, prepost, trace_dir: Path) -> dict:
             "prepost_path",
             lambda: DevicePrePost(device=dev).mine_tree(prepost["tree"],
                                                         prepost["minsup"]),
-            trace_dir)}
+            trace_dir),
+        "serve_path": profile_path(
+            "serve_path",
+            lambda: serve_greedy(serve["cfg"], serve["prompts"], SERVE_NEW,
+                                 model=serve["model"], device=dev,
+                                 log_fn=_quiet), trace_dir),
+        "retrieval_path": profile_path("retrieval_path", retrieval["run"],
+                                       trace_dir),
+        "serve_p99_path": profile_path("serve_p99_path",
+                                       retrieval["embed99"], trace_dir)}
 
 
 # ---------------------------------------------------------------------------
@@ -932,9 +1255,9 @@ def _timer(dev):
     return time_ms
 
 
-def _bound(nbytes: float, ops: float):
+def _bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1216,6 +1539,102 @@ def phase_timing_slice2(dev, declat, prepost) -> dict:
     return out
 
 
+def phase_timing_slice3(dev, serve, retrieval, seed) -> dict:
+    """flash_attention at the serve path's prefill shape (layer 0's own
+    q, k, v: B 8, S 2048, H 16, D 64, bf16), beside
+    ``F.scaled_dot_product_attention(is_causal=True)``, which the port
+    never calls; embedding_bag on the 2,000,000 x 256 item table at
+    serve_p99 (512 bags) and serve_bulk (262,144 bags) of 50 Zipf slots,
+    beside ``F.embedding_bag(mode="sum", per_sample_weights=mask)``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data.recsys_data import twotower_batch
+    from repro_torch.kernels import ops
+
+    time_ms = _timer(dev)
+    out = {}
+    q, k, v = serve["qkv"]
+    B, S, H, D = q.shape
+    KH, Dv = v.shape[2], v.shape[3]
+    fa_ms = time_ms(lambda: ops.flash_attention(q, k, v), 10)
+    fa_plain_ms = time_ms(
+        lambda: ops.flash_attention(q, k, v, backend="plain"), 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    fa_lib_ms = time_ms(sdpa, 10)
+    lib_err = (sdpa().transpose(1, 2).float()
+               - ops.flash_attention(q, k, v).float()).abs().max().item()
+    need(lib_err < 3e-2, f"flash_attention disagrees with SDPA ({lib_err})")
+    fa_bytes = (q.numel() + k.numel() + v.numel() + B * S * H * Dv) * 2
+    pairs = S * (S + 1) // 2                   # causal (query, key) pairs
+    fa_flops = 2 * B * H * pairs * (D + Dv)    # q.k and p.v
+    fa_bound, fa_by = _bound(fa_bytes, fa_flops, PEAK_BF16_FLOPS)
+    say(f"timing flash_attention (B {B} S {S} H {H} KH {KH} D {D} "
+        f"{q.dtype}, causal): kernel {fa_ms:.4f} ms, plain "
+        f"{fa_plain_ms:.4f} ms, "
+        f"library (SDPA) {fa_lib_ms:.4f} ms, bound {fa_bound:.4f} ms "
+        f"({fa_by}: {fa_bytes} B, {fa_flops} flops); kernel vs SDPA "
+        f"{lib_err}")
+    out["flash_attention"] = {
+        "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
+        "bound_by": fa_by, "library_ms": fa_lib_ms,
+        "max_abs_err": serve["report"]["layer0_attn_err"],
+        "shape": [B, S, H, KH, D, Dv], "bytes": fa_bytes, "ops": fa_flops,
+        "vs_library_err": lib_err}
+
+    cfg = retrieval["cfg"]
+    table = retrieval["model"].item_emb.table
+    V, D = table.shape
+    bags = {}
+    for n in (512, 262_144):
+        b = twotower_batch(seed + 2, n, cfg.n_users, cfg.n_items,
+                           cfg.n_user_hist)
+        ids = torch.from_numpy(b["hist_ids"]).to(dev)
+        mask = torch.from_numpy(b["hist_mask"]).to(dev)
+        L = ids.shape[1]
+        got = ops.embedding_bag(table, ids, mask)
+        err = (got - ops.embedding_bag(table, ids, mask, backend="plain")
+               ).abs().max().item()
+        need(err <= 1e-5, f"embedding_bag at {n} bags disagrees with its "
+                          f"plain version ({err})")
+        ids64, w = ids.long(), mask.to(torch.float32)
+
+        def library():
+            return F.embedding_bag(ids64, table, mode="sum",
+                                   per_sample_weights=w)
+
+        lib_err = (library() - ops.embedding_bag(table, ids, mask,
+                                                 combiner="sum")
+                   ).abs().max().item()
+        need(lib_err < 1e-4, f"embedding_bag sum vs F.embedding_bag "
+                             f"({lib_err})")
+        n_valid = int(mask.sum().item())
+        n_rows = int(torch.unique(ids[mask]).numel())
+        nbytes = n * L * (4 + 1) + n_rows * D * 4 + n * D * 4
+        bound, by = _bound(nbytes, n_valid * D + n * D)
+        ms = time_ms(lambda: ops.embedding_bag(table, ids, mask), 20)
+        plain_ms = time_ms(lambda: ops.embedding_bag(table, ids, mask,
+                                                     backend="plain"),
+                           3 if n <= 512 else 1)
+        lib_ms = time_ms(library, 20)
+        say(f"timing embedding_bag ({n} bags x {L} slots, {n_valid} valid, "
+            f"{n_rows} distinct rows of {V} x {D}, mean): kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}: {nbytes} B); streams "
+            f"{n_valid * D * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of rows")
+        bags[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by, "library_ms": lib_ms, "max_abs_err": err,
+                   "bags": n, "slots": L, "valid": n_valid,
+                   "distinct_rows": n_rows, "bytes": nbytes,
+                   "vs_library_err": lib_err}
+    # The kernels line carries the serve_p99 shape, the user tower's.
+    out["embedding_bag"] = dict(bags[512], serve_bulk=bags[262_144])
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 # name, source, the TPU kernel (or jnp function) it replaces, the path
@@ -1231,6 +1650,10 @@ KERNELS = (
      "src/repro/kernels/nlist_merge.py:100", "prepost"),
     ("zmerge_scatter", "src/repro_torch/csrc/nlist_merge.cu",
      "src/repro/kernels/ref.py:697", "prepost"),
+    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:91", "serve"),
+    ("embedding_bag", "src/repro_torch/csrc/segment_embed.cu",
+     "src/repro/kernels/segment_embed.py:53", "retrieval"),
 )
 
 
@@ -1241,6 +1664,9 @@ def main() -> int:
     ap.add_argument("--profile", default="", metavar="DIR",
                     help="also profile one run of each real-size path "
                          "and write the traces into DIR")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the serving phases' weights, prompts "
+                         "and bags")
     args = ap.parse_args()
 
     src = ROOT / "src"
@@ -1255,6 +1681,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    # The plain versions and the fp32 model run in full fp32 (no TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"],
@@ -1269,9 +1698,11 @@ def main() -> int:
     from repro_torch.kernels.bitmap_diff import bitmap_diff_es
     from repro_torch.kernels.bitmap_intersect import bitmap_intersect_es
     from repro_torch.kernels.compact import compact_gather
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.nlist_merge import nlist_merge, zmerge_scatter
+    from repro_torch.kernels.segment_embed import embedding_bag
     counters = (bitmap_intersect_es, compact_gather, bitmap_diff_es,
-                nlist_merge, zmerge_scatter)
+                nlist_merge, zmerge_scatter, flash_attention, embedding_bag)
     t0 = time.perf_counter()
     _build.load()
     say(f"build: kernels ready in {time.perf_counter() - t0:.2f} s "
@@ -1295,15 +1726,22 @@ def main() -> int:
     paths["declat"] = timed("declat", phase_declat, dev, counters)
     paths["prepost"] = timed("prepost", phase_prepost, dev, counters,
                              paths["main"])
+    paths["serve"] = timed("serve", phase_serve, dev, counters, args.seed)
+    paths["retrieval"] = timed("retrieval", phase_retrieval, dev, counters,
+                               args.seed)
     for name, res in paths.items():
         report[name] = res["report"]
     if args.profile:
         report["profile"] = timed("profile", profile_all, dev, paths["main"],
                                   paths["declat"], paths["prepost"],
+                                  paths["serve"], paths["retrieval"],
                                   Path(args.profile))
     report["timing"] = timed("timing", phase_timing, dev, paths["main"])
     report["timing"].update(timed("timing_slice2", phase_timing_slice2, dev,
                                   paths["declat"], paths["prepost"]))
+    report["timing"].update(timed("timing_slice3", phase_timing_slice3, dev,
+                                  paths["serve"], paths["retrieval"],
+                                  args.seed))
     torch.cuda.synchronize()
     report["phases_s"] = time.perf_counter() - t_start
     say(f"phases took {report['phases_s']:.1f} s: "

@@ -1,0 +1,24 @@
+"""Architecture registry of the port (counterpart of ``repro.configs``):
+the archs whose serving path is ported, ``get_arch`` over them."""
+
+from typing import Dict
+
+from repro_torch.configs.base import (  # noqa: F401
+    ArchSpec, ShapeDef, LM_SHAPES, RECSYS_SHAPES,
+)
+from repro_torch.configs import qwen1_5_0_5b, two_tower_retrieval
+
+REGISTRY: Dict[str, ArchSpec] = {
+    spec.arch_id: spec for spec in (qwen1_5_0_5b.SPEC,
+                                    two_tower_retrieval.SPEC)
+}
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    try:
+        return REGISTRY[arch_id]
+    except KeyError:
+        raise KeyError(
+            f"arch {arch_id!r} is not ported to PyTorch yet (ROADMAP.md "
+            f"Queue 1 lists the order); ported: {sorted(REGISTRY)}"
+        ) from None

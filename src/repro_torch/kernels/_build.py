@@ -35,6 +35,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points and their argument types (every pointer and the stream
 # are void*, so ctypes never truncates a 64-bit address).
 SIGNATURES = {
@@ -47,6 +48,9 @@ SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _P),
     "repro_zmerge_scatter": (_P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _P,
                              _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _I, _I, _P),
+    "repro_embedding_bag": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,71 @@
+"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+
+Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the
+Pallas TPU kernel): causal (top-left aligned) or full attention with
+GQA, the online softmax in fp32, fully masked KV tiles skipped.  It
+keeps the JAX package's layout: q ``(B, Sq, H, D)``, k ``(B, Skv, KH,
+D)``, v ``(B, Skv, KH, Dv)``, output ``(B, Sq, H, Dv)`` in q's type.
+Unlike the Pallas kernel it takes any ``Sq`` and ``Skv`` (ragged tiles
+are masked in the kernel); ``D`` and ``Dv`` are at most 128.
+
+CUDA tensors only, fp32 or bf16; the plain version for CPU tensors is
+``kernels.ref.flash_attention_ref``, chosen by ``kernels.ops``.  Each
+launch adds one to ``flash_attention.launches``; launches are on
+``torch.cuda.current_stream()`` and never synchronise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+
+Tensor = torch.Tensor
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    softmax_scale: Optional[float] = None) -> Tensor:
+    """Attention over ``q (B, Sq, H, D)``, ``k (B, Skv, KH, D)``, ``v (B,
+    Skv, KH, Dv)``; query head ``h`` reads kv head ``h // (H // KH)``.
+    ``softmax_scale`` defaults to ``D ** -0.5``."""
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError("flash_attention takes CUDA tensors on one device, "
+                         f"got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q, k and v must all be float32 or all bfloat16, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be 4-D (B, S, heads, dim)")
+    B, Sq, H, D = q.shape
+    _, Skv, KH, Dv = v.shape
+    if tuple(k.shape) != (B, Skv, KH, D) or v.shape[0] != B:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if KH == 0 or H % KH:
+        raise ValueError(f"{H} query heads do not group over {KH} kv heads")
+    if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM):
+        raise ValueError(f"head dims D={D}, Dv={Dv} must be in "
+                         f"[1, {MAX_HEAD_DIM}]")
+    if Skv == 0:
+        raise ValueError("flash_attention needs at least one key")
+    scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0:
+        return out
+    err = _build.load().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
+        H, KH, D, Dv, scale, int(bool(causal)), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -6,8 +6,9 @@ Selection goes by the device of the tensors given:
 * CPU tensors take the plain PyTorch versions in ``kernels.ref`` (the
   tests and ``device="cpu"`` runs);
 * CUDA tensors launch the Hopper kernels (``kernels.bitmap_intersect``,
-  ``kernels.bitmap_diff``, ``kernels.nlist_merge``, ``kernels.compact``),
-  or raise — nothing falls back.
+  ``kernels.bitmap_diff``, ``kernels.nlist_merge``, ``kernels.compact``,
+  ``kernels.flash_attention``, ``kernels.segment_embed``), or raise —
+  nothing falls back.
 
 ``backend`` is kept for API parity with the JAX package: ``"auto"`` (the
 default, the rule above) or ``"plain"``, which forces the plain version
@@ -34,8 +35,10 @@ import torch
 from . import bitmap_diff as _bd
 from . import bitmap_intersect as _bi
 from . import compact as _compact
+from . import flash_attention as _fa
 from . import nlist_merge as _nl
 from . import ref as _ref
+from . import segment_embed as _se
 
 Tensor = torch.Tensor
 
@@ -332,3 +335,24 @@ def nlist_extend(codes: Tensor, u_off, u_len, v_off, v_len, out_off, rho_v,
     return _ref.nlist_extend_ref(codes, u_off, u_len, v_off, v_len, out_off,
                                  rho, minsup, lu=lu, lv=lv,
                                  early_stop=early_stop)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    softmax_scale=None, backend: str = "auto") -> Tensor:
+    """Fused causal GQA attention (``ref.flash_attention_ref`` semantics):
+    q ``(B, Sq, H, D)``, k ``(B, Skv, KH, D)``, v ``(B, Skv, KH, Dv)`` ->
+    ``(B, Sq, H, Dv)`` in q's type."""
+    if _use_kernel(q, backend):
+        return _fa.flash_attention(q, k, v, causal=causal,
+                                   softmax_scale=softmax_scale)
+    return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                    softmax_scale=softmax_scale)
+
+
+def embedding_bag(table: Tensor, ids: Tensor, mask: Tensor, *,
+                  combiner: str = "mean", backend: str = "auto") -> Tensor:
+    """Fused EmbeddingBag (``ref.embedding_bag_ref`` semantics): masked
+    sum or mean of table rows per bag, ``(B, L)`` -> ``(B, D)``."""
+    if _use_kernel(table, backend):
+        return _se.embedding_bag(table, ids, mask, combiner=combiner)
+    return _ref.embedding_bag_ref(table, ids, mask, combiner=combiner)

@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the port's kernels (port of the matching
 functions of ``repro.kernels.ref``): the ES scan, the dEclat difference,
-the N-list merge / Z-merge scatter and the compaction gather.
+the N-list merge / Z-merge scatter, the compaction gather, flash
+attention and EmbeddingBag.
 
-Each function here defines, bit for bit, what its Hopper kernel under
-``csrc/`` computes.  They run on any device: ``kernels.ops`` takes them
-for CPU tensors (the tests and the CPU entry points), and
-``chip_smoke.py`` runs them on the card to hold the kernels against.
+Each function here defines what its Hopper kernel under ``csrc/``
+computes: bit for bit for the integer kernels and EmbeddingBag, within
+a float tolerance for attention (the kernel sums in another order).
+They run on any device: ``kernels.ops`` takes them for CPU tensors (the
+tests and the CPU entry points), and ``chip_smoke.py`` runs them on the
+card to hold the kernels against.
 
 Bitmaps are int32 tensors holding uint32 bits (see ``core.bitmap``).
 Unlike the jnp refs, the fused dispatches update the row store (and the
@@ -421,3 +424,52 @@ def compact_gather_ref(slab: Tensor, perm: Tensor) -> Tensor:
     ok = (perm >= 0) & (perm < cap)
     ok = ok.reshape((perm.shape[0],) + (1,) * (slab.dim() - 1))
     return g * ok.to(slab.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention + embedding bag (``repro.kernels.ref``: 553, 571)
+# ---------------------------------------------------------------------------
+
+def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
+                        causal: bool = True, softmax_scale=None) -> Tensor:
+    """Dense attention with an fp32 softmax, GQA by folding query heads
+    into ``(KH, G)`` groups: q ``(B, Sq, H, D)``, k ``(B, Skv, KH, D)``,
+    v ``(B, Skv, KH, Dv)`` -> ``(B, Sq, H, Dv)`` in q's type.  Any ``Sq``
+    and ``Skv``; the causal mask is top-left aligned (query ``i`` sees
+    keys ``<= i``) and masked scores are ``-1e30``."""
+    B, Sq, H, D = q.shape
+    _, Skv, KH, Dv = v.shape
+    G = H // KH
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    qg = q.reshape(B, Sq, KH, G, D).to(torch.float32)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg, k.to(torch.float32)) * scale
+    if causal:
+        ar_q = torch.arange(Sq, device=q.device)
+        ar_k = torch.arange(Skv, device=q.device)
+        masked = ar_q[:, None] < ar_k[None, :]
+        s.masked_fill_(masked[None, :, None, None, :], -1e30)
+    a = torch.softmax(s, dim=-1)
+    del s
+    o = torch.einsum("bqkgs,bskv->bqkgv", a, v.to(torch.float32))
+    return o.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def embedding_bag_ref(table: Tensor, ids: Tensor, mask: Tensor, *,
+                      combiner: str = "mean") -> Tensor:
+    """Masked sum (or mean over ``max(count, 1)``) of the rows ``ids``
+    names, per bag: table ``(V, D)``, ids and mask ``(B, L)`` -> ``(B,
+    D)``.  The slots are added in order, one at a time, which is the
+    order the Hopper kernel adds them in; a masked slot adds zero (its id
+    is clamped into the table, so it may hold any value)."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"unknown combiner {combiner!r}")
+    B, L = ids.shape
+    V, D = table.shape
+    m = mask.to(torch.float32)
+    safe = ids.to(torch.int64).clamp(0, max(V - 1, 0))
+    acc = torch.zeros((B, D), dtype=torch.float32, device=table.device)
+    for j in range(L):
+        acc = acc + table[safe[:, j]].to(torch.float32) * m[:, j, None]
+    if combiner == "mean":
+        acc = acc / m.sum(dim=-1, keepdim=True).clamp_min(1.0)
+    return acc.to(table.dtype)

@@ -20,7 +20,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.bitmap_diff import bitmap_diff_es
 from repro_torch.kernels.bitmap_intersect import bitmap_intersect_es
 from repro_torch.kernels.compact import compact_gather
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.nlist_merge import nlist_merge, zmerge_scatter
+from repro_torch.kernels.segment_embed import embedding_bag
 
 pytestmark = pytest.mark.cuda
 
@@ -219,3 +221,132 @@ def test_slice2_engines_on_card_equal_cpu(cuda_device, scheme):
     times = {"runtime_s", "assemble_s", "resolve_s"}
     assert ({k: v for k, v in st_c.as_dict().items() if k not in times}
             == {k: v for k, v in st_p.as_dict().items() if k not in times})
+
+
+# ---------------------------------------------------------------------------
+# flash attention and EmbeddingBag (the serving paths)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,Dv,causal,dtype,tol", [
+    (2, 128, 128, 4, 2, 32, 32, True, torch.float32, 2e-5),
+    (1, 256, 256, 8, 8, 64, 64, True, torch.float32, 2e-5),
+    (2, 128, 256, 4, 1, 32, 16, False, torch.float32, 2e-5),
+    (1, 128, 128, 4, 4, 128, 128, True, torch.float32, 2e-5),
+    (1, 128, 128, 4, 2, 32, 32, True, torch.bfloat16, 3e-2),
+    (1, 1, 1, 2, 1, 16, 16, True, torch.float32, 2e-5),
+    (2, 65, 65, 4, 2, 32, 32, True, torch.float32, 2e-5),
+    (1, 200, 200, 4, 4, 64, 64, True, torch.bfloat16, 3e-2),
+    (1, 70, 130, 4, 2, 32, 24, False, torch.float32, 2e-5),
+    (1, 130, 70, 2, 2, 16, 16, True, torch.float32, 2e-5),
+])
+def test_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, H, KH, D, Dv,
+                                    causal, dtype, tol):
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in fp32
+    g = torch.Generator(device=cuda_device).manual_seed(Sq * 131 + Skv)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((B, Sq, H, D), (B, Skv, KH, D),
+                             (B, Skv, KH, Dv)))
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention(q, k, v, causal=causal, backend="plain")
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < tol, err
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 4, 2, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(torch.zeros((1, 4, 2, 192), device=cuda_device),
+                        *(torch.zeros((1, 4, 2, 192), device=cuda_device),) * 2)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="group"):
+        flash_attention(torch.zeros((1, 4, 3, 8), device=cuda_device), q, q)
+
+
+def _bag_inputs(rng, V, D, B, L, dev, p_valid=0.8):
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, V, (B, L)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((B, L)) < p_valid)
+    return table.to(dev), ids.to(dev), mask.to(dev)
+
+
+@pytest.mark.parametrize("V,D,B,L,comb", [
+    (100, 16, 8, 5, "mean"), (64, 32, 16, 9, "sum"),
+    (257, 8, 4, 3, "mean"), (1000, 64, 8, 20, "mean"),
+    (300, 6, 33, 7, "sum"), (5000, 256, 70, 50, "mean")])
+def test_bag_kernel_matches_plain(cuda_device, V, D, B, L, comb):
+    rng = np.random.default_rng(V)
+    table, ids, mask = _bag_inputs(rng, V, D, B, L, cuda_device)
+    mask[0] = False                                  # an all-masked bag
+    for m in (mask, mask.to(torch.int32)):
+        before = embedding_bag.launches
+        got = ops.embedding_bag(table, ids, m, combiner=comb)
+        want = ops.embedding_bag(table, ids, m, combiner=comb,
+                                 backend="plain")
+        assert embedding_bag.launches == before + 1
+        assert (got - want).abs().max().item() < 1e-5
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+    # A table that is not 16-byte aligned takes the scalar path.
+    flat = torch.zeros(V * D + 1, device=cuda_device)
+    off = flat[1:].view(V, D)
+    off.copy_(table)
+    got = ops.embedding_bag(off, ids, mask, combiner=comb)
+    want = ops.embedding_bag(off, ids, mask, combiner=comb, backend="plain")
+    assert (got - want).abs().max().item() < 1e-5
+
+
+def test_bag_kernel_row_offsets_are_64_bit(cuda_device):
+    """Rows past 2^31 / D: at D = 256 an int32 ``id * D`` wraps beyond
+    8,388,608 rows.  The table (8.6 GB) is left uninitialised except the
+    rows the bags name."""
+    D, V = 256, 2 ** 23 + 64
+    table = torch.empty((V, D), device=cuda_device)
+    rng = np.random.default_rng(9)
+    ids_np = rng.integers(V - 64, V, (16, 5)).astype(np.int32)
+    ids_np[:, 0] = rng.integers(0, 64, 16)
+    ids = torch.from_numpy(ids_np).to(cuda_device)
+    rows = torch.unique(ids.long())
+    table[rows] = torch.randn((rows.numel(), D), device=cuda_device)
+    mask = torch.ones((16, 5), dtype=torch.bool, device=cuda_device)
+    got = ops.embedding_bag(table, ids, mask, combiner="sum")
+    want = ops.embedding_bag(table, ids, mask, combiner="sum",
+                             backend="plain")
+    assert torch.equal(got, want)
+
+
+def test_serving_paths_launch_their_kernels(cuda_device):
+    """Prefill launches flash attention once per layer and decode not at
+    all; the user tower launches the bag kernel; both agree with the
+    plain paths."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys_data import twotower_batch
+    from repro_torch.launch.serve import serve_greedy
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("qwen1.5-0.5b").smoke_config_fn()
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32)
+    model = T.init_params(cfg, seed=0, device=cuda_device)
+    before = flash_attention.launches
+    got = serve_greedy(cfg, prompts, 5, model=model, device=cuda_device)
+    assert flash_attention.launches == before + cfg.n_layers
+    want = serve_greedy(cfg, prompts, 5, model=model, device=cuda_device,
+                        backend="plain")
+    assert np.array_equal(got, want)
+
+    tcfg = get_arch("two-tower-retrieval").smoke_config_fn()
+    tt = R.twotower_init(tcfg, seed=0, device=cuda_device)
+    b = twotower_batch(0, 4, tcfg.n_users, tcfg.n_items, tcfg.n_user_hist)
+    args = [torch.from_numpy(b[k]).to(cuda_device)
+            for k in ("user_id", "hist_ids", "hist_mask")]
+    cand = torch.arange(tcfg.n_items, dtype=torch.int32, device=cuda_device)
+    before = embedding_bag.launches
+    vk, ik = R.retrieval_scores(tt, tcfg, *args, cand, topk=10)
+    assert embedding_bag.launches == before + 1
+    vp, ip = R.retrieval_scores(tt, tcfg, *args, cand, topk=10,
+                                backend="plain")
+    assert torch.equal(ik, ip) and (vk - vp).abs().max().item() <= 1e-5
