@@ -15,10 +15,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    out-of-range slots, the N-list merge and Z-merge scatter (lengths 0,
    1, every bucket edge and 32769; whole pool slabs equal) and the
    compaction gather (rows, suffix tables, (cap, 3) codes); flash
-   attention within 2e-5 (fp32) and 3e-2 (bf16) on the sweep of
-   ``tests/test_kernels.py`` plus ragged lengths and Sq != Skv; the
-   EmbeddingBag within 1e-5 (bool and int32 masks, an all-masked bag,
-   the scalar path, a 2,000,000 x 256 table);
+   attention within 2e-5 (fp32, the scalar kernel) and 3e-2 (bf16, the
+   tensor-core kernel) on the sweep of ``tests/test_kernels.py`` plus
+   ragged lengths and Sq != Skv, and the bf16 edges again (head dims
+   16/64/128 and 6, Dv != D, one kv head, no mask, one token, S 1024); the
+   EmbeddingBag bit for bit (bool and int32 masks, an all-masked bag, the
+   scalar path, 100 slots, a bag whose only valid slot is the last, 5000
+   bags, a 2,000,000 x 256 table);
 2. mines the three smoke regimes, ES on and off, and requires every
    counter of ``benchmarks/baselines/BENCH_smoke.json``: eclat at
    block_words=8, adaptive at its baseline knobs, PrePost+;
@@ -48,7 +51,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
 9. holds each mining path's first dispatch at real size against its
    plain version, then times every kernel with CUDA events at its path's
    shapes, beside its bound, its plain version and, where one PyTorch
-   call computes the same function, that call.
+   call computes the same function, that call (with the kernel / library
+   ratio, and flash attention's TFLOP/s and the EmbeddingBag's GB/s).
 
 Every path runs with every kernel's launch count set to 0 just before
 and read just after; a path that launched one of its kernels no time
@@ -261,6 +265,11 @@ def phase_kernels(dev, rng) -> dict:
 # B, Sq, Skv, H, KH, D, Dv, causal, dtype, tolerance: the sweep of
 # tests/test_kernels.py:520-524 (its tolerances: fp32 2e-5, bf16 3e-2),
 # then ragged lengths, Sq != Skv both ways, and bf16 at a ragged length.
+# fp32 runs on the scalar kernel and bf16 on the tensor-core kernel, so the
+# bf16 rows repeat the edges for the second kernel: head dims 16/64/128,
+# Dv != D, GQA with one kv head, no mask, Sq != Skv both ways, one token,
+# a ragged 65, the serve head shape at S 1024, and a head dim that TMA
+# cannot take (D 6: the plain-load fill).
 FLASH_CASES = (
     (2, 128, 128, 4, 2, 32, 32, True, "float32", 2e-5),
     (1, 256, 256, 8, 8, 64, 64, True, "float32", 2e-5),
@@ -273,6 +282,18 @@ FLASH_CASES = (
     (1, 70, 130, 4, 2, 32, 24, False, "float32", 2e-5),
     (1, 130, 70, 2, 2, 16, 16, True, "float32", 2e-5),
     (1, 200, 200, 16, 16, 64, 64, True, "bfloat16", 3e-2),
+    (2, 128, 128, 4, 2, 16, 16, True, "bfloat16", 3e-2),
+    (1, 256, 256, 8, 8, 64, 64, True, "bfloat16", 3e-2),
+    (1, 128, 128, 4, 4, 128, 128, True, "bfloat16", 3e-2),
+    (1, 70, 130, 4, 2, 32, 24, True, "bfloat16", 3e-2),
+    (2, 128, 256, 4, 1, 32, 32, True, "bfloat16", 3e-2),
+    (2, 128, 256, 4, 2, 64, 64, False, "bfloat16", 3e-2),
+    (1, 70, 130, 4, 2, 32, 32, True, "bfloat16", 3e-2),
+    (1, 130, 70, 2, 2, 16, 16, True, "bfloat16", 3e-2),
+    (1, 1, 1, 2, 1, 16, 16, True, "bfloat16", 3e-2),
+    (2, 65, 65, 4, 2, 32, 32, True, "bfloat16", 3e-2),
+    (1, 1024, 1024, 16, 16, 64, 64, True, "bfloat16", 3e-2),
+    (1, 300, 300, 4, 2, 6, 10, True, "bfloat16", 3e-2),
 )
 
 
@@ -294,28 +315,37 @@ def _check_flash(dev, close) -> None:
 
 
 def _check_bag(dev, rng, close) -> None:
-    """embedding_bag against its plain version: the sweep of
+    """embedding_bag against its plain version, bit for bit: the sweep of
     tests/test_kernels.py:543-545 (bool and int32 masks), an all-masked
-    bag, a width that is not a multiple of 4 (the scalar path), and the
-    two-tower item table (2,000,000 x 256) with Zipf history bags."""
+    bag, a width that is not a multiple of 4 (the scalar path), 100 slots
+    (past one warp's 64 slots in registers), a bag whose only valid slot is
+    the last, 5000 bags (the large-batch design), and the two-tower item
+    table (2,000,000 x 256) with Zipf history bags."""
     import torch
     from repro_torch.data.recsys_data import twotower_batch
     from repro_torch.kernels import ops
 
     def one(table, ids, mask, comb, what):
         for m in (mask, mask.to(torch.int32)):
-            close("embedding_bag",
-                  ops.embedding_bag(table, ids, m, combiner=comb),
-                  ops.embedding_bag(table, ids, m, combiner=comb,
-                                    backend="plain"), 1e-5,
+            got = ops.embedding_bag(table, ids, m, combiner=comb)
+            want = ops.embedding_bag(table, ids, m, combiner=comb,
+                                     backend="plain")
+            close("embedding_bag", got, want, 1e-5,
                   f"{what} {comb} mask {m.dtype}")
+            need(torch.equal(got, want), f"embedding_bag: {what} {comb} "
+                 f"mask {m.dtype} is not bit-equal to its plain version")
 
     for V, D, B, L, comb in ((100, 16, 8, 5, "mean"), (64, 32, 16, 9, "sum"),
                              (257, 8, 4, 3, "mean"), (1000, 64, 8, 20, "mean"),
-                             (300, 6, 33, 7, "sum")):
+                             (300, 6, 33, 7, "sum"),
+                             (5000, 256, 40, 100, "mean"),
+                             (700, 12, 40, 100, "sum"),
+                             (3000, 64, 5000, 30, "mean")):
         table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32))
         ids = torch.from_numpy(rng.integers(0, V, (B, L)).astype(np.int32))
         mask = torch.from_numpy(rng.random((B, L)) < 0.8)
+        mask[1] = False
+        mask[1, -1] = True                      # only the last slot valid
         one(table.to(dev), ids.to(dev), mask.to(dev), comb,
             f"V={V} D={D} B={B} L={L}")
     ones = torch.ones((8, 4), device=dev)
@@ -1572,15 +1602,18 @@ def phase_timing_slice3(dev, serve, retrieval, seed) -> dict:
     pairs = S * (S + 1) // 2                   # causal (query, key) pairs
     fa_flops = 2 * B * H * pairs * (D + Dv)    # q.k and p.v
     fa_bound, fa_by = _bound(fa_bytes, fa_flops, PEAK_BF16_FLOPS)
+    fa_tflops = fa_flops / (fa_ms * 1e-3) / 1e12
     say(f"timing flash_attention (B {B} S {S} H {H} KH {KH} D {D} "
-        f"{q.dtype}, causal): kernel {fa_ms:.4f} ms, plain "
-        f"{fa_plain_ms:.4f} ms, "
-        f"library (SDPA) {fa_lib_ms:.4f} ms, bound {fa_bound:.4f} ms "
+        f"{q.dtype}, causal): kernel {fa_ms:.4f} ms ({fa_tflops:.1f} "
+        f"TFLOP/s), plain {fa_plain_ms:.4f} ms, "
+        f"library (SDPA) {fa_lib_ms:.4f} ms, kernel / library "
+        f"{fa_ms / fa_lib_ms:.3f}, bound {fa_bound:.4f} ms "
         f"({fa_by}: {fa_bytes} B, {fa_flops} flops); kernel vs SDPA "
         f"{lib_err}")
     out["flash_attention"] = {
         "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
         "bound_by": fa_by, "library_ms": fa_lib_ms,
+        "kernel_over_library": fa_ms / fa_lib_ms, "tflops": fa_tflops,
         "max_abs_err": serve["report"]["layer0_attn_err"],
         "shape": [B, S, H, KH, D, Dv], "bytes": fa_bytes, "ops": fa_flops,
         "vs_library_err": lib_err}
@@ -1596,10 +1629,10 @@ def phase_timing_slice3(dev, serve, retrieval, seed) -> dict:
         mask = torch.from_numpy(b["hist_mask"]).to(dev)
         L = ids.shape[1]
         got = ops.embedding_bag(table, ids, mask)
-        err = (got - ops.embedding_bag(table, ids, mask, backend="plain")
-               ).abs().max().item()
-        need(err <= 1e-5, f"embedding_bag at {n} bags disagrees with its "
-                          f"plain version ({err})")
+        want = ops.embedding_bag(table, ids, mask, backend="plain")
+        err = (got - want).abs().max().item()
+        need(torch.equal(got, want), f"embedding_bag at {n} bags is not "
+                                     f"bit-equal to its plain version ({err})")
         ids64, w = ids.long(), mask.to(torch.float32)
 
         def library():
@@ -1620,13 +1653,16 @@ def phase_timing_slice3(dev, serve, retrieval, seed) -> dict:
                                                      backend="plain"),
                            3 if n <= 512 else 1)
         lib_ms = time_ms(library, 20)
+        gbs = nbytes / (ms * 1e-3) / 1e9
         say(f"timing embedding_bag ({n} bags x {L} slots, {n_valid} valid, "
             f"{n_rows} distinct rows of {V} x {D}, mean): kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}: {nbytes} B); streams "
+            f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, kernel "
+            f"/ library {ms / lib_ms:.3f}, bound {bound:.4f} ms ({by}: "
+            f"{nbytes} B, {gbs:.1f} GB/s of them); streams "
             f"{n_valid * D * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of rows")
         bags[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": by, "library_ms": lib_ms, "max_abs_err": err,
+                   "kernel_over_library": ms / lib_ms, "gb_per_s": gbs,
                    "bags": n, "slots": L, "valid": n_valid,
                    "distinct_rows": n_rows, "bytes": nbytes,
                    "vs_library_err": lib_err}

@@ -1,4 +1,5 @@
-// Causal flash attention with GQA, for Hopper (sm_90a).
+// Causal flash attention with GQA, for Hopper (sm_90a): fp32 here, bf16 on
+// the tensor cores in flash_attention_sm90.cuh.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // (its `_kernel`): o = softmax(q k^T * scale, causal top-left mask) v, per
@@ -11,25 +12,27 @@
 // ragged edges of both tiles are masked here, so the Pallas kernel's
 // Sq % q_block == 0 limit does not carry over.
 //
-// What bounds it: at prefill shapes (S 2048, D 64) the work is ~2 S^2 D
-// flops per head against 4 S D bytes, far above the card's ridge, so the
-// bound is operations.  This first version does those operations as scalar
-// fp32 FMAs (no tensor cores), so it sits well above the bf16 tensor bound.
-// What the design does about it: each CTA owns a 64-row query tile of one
-// (batch, head) and stages it once in shared memory (pre-scaled, fp32); K/V
-// tiles of 64 keys are staged in turn.  Each of the 128 threads keeps a 4 x 8
-// register tile of scores (4 query rows, 8 keys strided by 8) and a 4 x Dv/8
-// slice of the accumulator, so every shared-memory load feeds 2-3 FMAs, and
-// row statistics are reduced over the 8 lanes that share a row with
-// shuffles.  Row strides of Q and K are padded by one float so the strided
-// reads hit distinct banks.  Heavy (late) query tiles are launched first.
+// The fp32 kernel below does its products as scalar fp32 FMAs: fp32 inputs
+// are held to 2e-5 of the fp32 reference, which TF32 tensor cores would not
+// meet.  What bounds it: at prefill shapes (S 2048, D 64) the work is
+// ~2 S^2 D flops per head against 4 S D bytes, far above the card's ridge,
+// so the bound is operations.  What the design does about it: each CTA owns
+// a 64-row query tile of one (batch, head) and stages it once in shared
+// memory (pre-scaled, fp32); K/V tiles of 64 keys are staged in turn.  Each
+// of the 128 threads keeps a 4 x 8 register tile of scores (4 query rows, 8
+// keys strided by 8) and a 4 x Dv/8 slice of the accumulator, so every
+// shared-memory load feeds 2-3 FMAs, and row statistics are reduced over
+// the 8 lanes that share a row with shuffles.  Row strides of Q and K are
+// padded by one float so the strided reads hit distinct banks.  Heavy (late)
+// query tiles are launched first.
 //
 // C interface (ctypes): pointers and the stream are void*; returns
 // cudaGetLastError() after the launch.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -41,31 +44,23 @@ constexpr int kRows = 4;       // query rows per thread
 constexpr int kKeys = kBKV / kTX;  // keys per thread per tile
 constexpr float kNeg = -1e30f;     // the Pallas kernel's mask value
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f(float x, float* out) { *out = x; }
-__device__ __forceinline__ void from_f(float x, __nv_bfloat16* out) {
-  *out = __float2bfloat16(x);
-}
-
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* __restrict__ src,
+__device__ __forceinline__ void stage(float* dst, int ld, const float* __restrict__ src,
                                       int64_t row_stride, int row0, int n_rows, int rows_valid,
                                       int width, float mul) {
   // dst[r * ld + c] = src[(row0 + r) * row_stride + c] * mul, zeros past rows_valid.
   for (int i = threadIdx.x; i < n_rows * width; i += kThreads) {
     const int r = i / width, c = i - r * width;
     const int s = row0 + r;
-    dst[r * ld + c] = s < rows_valid ? to_f(src[int64_t(s) * row_stride + c]) * mul : 0.f;
+    dst[r * ld + c] = s < rows_valid ? src[int64_t(s) * row_stride + c] * mul : 0.f;
   }
 }
 
 // kDVP = accumulator columns per thread (Dv <= kTX * kDVP).
-template <typename T, int kDVP>
+template <int kDVP>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, int Sq, int Skv, int H, int KH, int D, int Dv,
-                  float scale, int causal) {
+flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int H,
+                  int KH, int D, int Dv, float scale, int causal) {
   extern __shared__ float smem[];
   const int ldk = D + 1;
   float* Qs = smem;                      // kBQ x ldk
@@ -80,9 +75,9 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int ty = threadIdx.x / kTX, tx = threadIdx.x % kTX;
 
   // Base pointers of this (batch, head): row s of q is q_b[s * H * D].
-  const T* q_b = q + (int64_t(b) * Sq * H + h) * D;
-  const T* k_b = k + (int64_t(b) * Skv * KH + kh) * D;
-  const T* v_b = v + (int64_t(b) * Skv * KH + kh) * Dv;
+  const float* q_b = q + (int64_t(b) * Sq * H + h) * D;
+  const float* k_b = k + (int64_t(b) * Skv * KH + kh) * D;
+  const float* v_b = v + (int64_t(b) * Skv * KH + kh) * Dv;
   stage(Qs, ldk, q_b, int64_t(H) * D, q0, kBQ, Sq, D, scale);
 
   float m[kRows], l[kRows], acc[kRows][kDVP];
@@ -173,45 +168,46 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     const int row = q0 + ty * kRows + r;
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    T* o_row = o + ((int64_t(b) * Sq + row) * H + h) * Dv;
+    float* o_row = o + ((int64_t(b) * Sq + row) * H + h) * Dv;
 #pragma unroll
     for (int c = 0; c < kDVP; ++c) {
       const int col = tx + kTX * c;
-      if (col < Dv) from_f(acc[r][c] * inv, o_row + col);
+      if (col < Dv) o_row[col] = acc[r][c] * inv;
     }
   }
 }
 
-template <typename T, int kDVP>
+template <int kDVP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
                    int H, int KH, int D, int Dv, float scale, int causal, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (size_t(kBQ) * (D + 1) + size_t(kBKV) * (D + 1) + size_t(kBKV) * Dv +
                        size_t(kBQ) * (kBKV + 1));
-  auto* fn = flash_attn_kernel<T, kDVP>;
+  auto* fn = flash_attn_kernel<kDVP>;
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  fn<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H,
-                                       KH, D, Dv, scale, causal);
+  fn<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                       static_cast<const float*>(v), static_cast<float*>(o), Sq,
+                                       Skv, H, KH, D, Dv, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-                     int H, int KH, int D, int Dv, float scale, int causal, cudaStream_t st) {
-  if (Dv <= 16) return launch<T, 2>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
-  if (Dv <= 32) return launch<T, 4>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
-  if (Dv <= 64) return launch<T, 8>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
-  return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                         int Skv, int H, int KH, int D, int Dv, float scale, int causal,
+                         cudaStream_t st) {
+  if (Dv <= 16) return launch<2>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
+  if (Dv <= 32) return launch<4>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
+  if (Dv <= 64) return launch<8>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
+  return launch<16>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (q, k, v and o alike).  The wrapper checks
-// shapes, 1 <= Sq, Skv; 1 <= D, Dv <= 128; H % KH == 0.
+// dtype: 0 = fp32 (the scalar kernel above), 1 = bf16 (the tensor-core
+// kernel, fa90::dispatch); q, k, v and o alike.  The wrapper checks shapes,
+// 1 <= Sq, Skv; 1 <= D, Dv <= 128; H % KH == 0.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                      int Sq, int Skv, int H, int KH, int D, int Dv, float scale,
                                      int causal, int dtype, void* stream) {
@@ -219,9 +215,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (B <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D > 128 || Dv <= 0 || Dv > 128 || KH <= 0 ||
       H % KH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err =
-      dtype == 1
-          ? dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st)
-          : dispatch<float>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
+      dtype == 1 ? fa90::dispatch(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st)
+                 : dispatch_f32(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
   return static_cast<int>(err);
 }
+

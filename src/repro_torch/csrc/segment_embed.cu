@@ -7,15 +7,25 @@
 // The (B, L, D) gathered tensor never exists.  table is fp32 (V, D), ids
 // int32 (B, L), mask int32 or bool (B, L), out fp32 (B, D).
 //
-// What bounds it: memory.  Each valid slot reads one D-float row (1 KB at
-// D = 256) and does D adds, so the bound is the bytes of ids, mask, the
-// rows that valid slots name, and the output.  What the design does about
-// it: one warp per bag; its lanes span D with 16-byte loads (D = 256 is two
-// float4 per lane), so every row is read with whole 512-byte warp
-// transactions, and the rows of one bag are independent loads the warp
-// keeps in flight.  The slots are walked in order, so each element's sum is
-// taken in the plain version's order; a masked slot's row is never read.
-// Row offsets are 64-bit: id * D passes 2^31 past 8.4 M rows at D = 256.
+// What bounds it: memory, and at small batches latency.  Each valid slot
+// reads one D-float row (1 KB at D = 256) and does D adds, so the bound is
+// the bytes of ids, mask, the rows that valid slots name, and the output.
+// Every design below walks a bag's valid slots in order, so each element's
+// sum is taken in the plain version's order (bit-equal to it); a masked
+// slot's row is never read; row offsets are 64-bit (id * D passes 2^31 past
+// 8.4 M rows at D = 256).  Two designs, chosen by batch size:
+// - Large batches (enough bags to give every SM 32 warps, one bag each):
+//   throughput.  One warp per bag, lanes across D with 16-byte loads, the
+//   slots walked one by one; the many warps in flight hide the latency,
+//   and the few registers keep every SM full.
+// - Small batches (512 bags at D = 256 make 64 such CTAs: half the SMs
+//   idle, ~100 dependent round trips per warp): latency.  A warp owns one
+//   bag and 32 consecutive 16-byte columns (D = 256: two warps per bag),
+//   CTAs of 4 warps.  It loads the bag's ids and mask once, 64 slots at a
+//   time with coalesced loads into two registers per lane, counts the valid
+//   slots with __ballot_sync / __popc, takes them in slot order with
+//   __shfl_sync, and issues the row loads of kBatch valid slots before
+//   adding any of them: a bag of 50 slots costs a few round trips.
 //
 // C interface (ctypes): pointers and the stream are void*; returns
 // cudaGetLastError() after the launch.
@@ -25,8 +35,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kBatch = 8;  // row loads in flight per warp (small batches)
 
 __device__ __forceinline__ void add(float4& a, const float4& x) {
   a.x += x.x;
@@ -44,11 +53,13 @@ __device__ __forceinline__ float divide(float a, float c) { return a / c; }
 
 // Vec = float4 (D % 4 == 0, 16-byte aligned table and out) or float.
 // M = int32_t or uint8_t (bool) mask.
-template <typename Vec, typename M>
-__global__ void __launch_bounds__(kThreads)
-embedding_bag_kernel(const Vec* __restrict__ table, const int32_t* __restrict__ ids,
-                     const M* __restrict__ mask, Vec* __restrict__ out, int64_t n_rows,
-                     int64_t B, int L, int64_t row_vecs, int mean) {
+
+// Large batches: warp w of the grid owns bag w and walks its slots.
+template <typename Vec, typename M, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
+bag_slots_kernel(const Vec* __restrict__ table, const int32_t* __restrict__ ids,
+                 const M* __restrict__ mask, Vec* __restrict__ out, int64_t n_rows, int64_t B,
+                 int L, int64_t row_vecs, int mean) {
   const int lane = threadIdx.x % 32;
   const int64_t bag = int64_t(blockIdx.x) * kWarps + threadIdx.x / 32;
   if (bag >= B) return;
@@ -71,13 +82,75 @@ embedding_bag_kernel(const Vec* __restrict__ table, const int32_t* __restrict__ 
   }
 }
 
+// Small batches: warp w of the grid owns bag w / col_blocks and the 32 Vec
+// columns starting at (w % col_blocks) * 32.
+template <typename Vec, typename M, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
+bag_batched_kernel(const Vec* __restrict__ table, const int32_t* __restrict__ ids,
+                   const M* __restrict__ mask, Vec* __restrict__ out, int64_t n_rows, int64_t B,
+                   int L, int64_t row_vecs, int64_t col_blocks, int mean) {
+  const int lane = threadIdx.x % 32;
+  const int64_t w = int64_t(blockIdx.x) * kWarps + threadIdx.x / 32;
+  const int64_t bag = w / col_blocks;
+  if (bag >= B) return;  // whole warps leave together
+  const int64_t c = (w % col_blocks) * 32 + lane;
+  const bool col_ok = c < row_vecs;  // idle lanes still take part in the shuffles
+  const int32_t* bag_ids = ids + bag * L;
+  const M* bag_mask = mask + bag * L;
+  Vec acc = zero(Vec{});
+  int cnt = 0;
+  for (int base = 0; base < L; base += 64) {
+    // Slots base + lane and base + 32 + lane, loaded once.
+    const int j0 = base + lane, j1 = base + 32 + lane;
+    const int32_t id0 = j0 < L ? bag_ids[j0] : 0, id1 = j1 < L ? bag_ids[j1] : 0;
+    const bool ok0 = j0 < L && bag_mask[j0] != 0, ok1 = j1 < L && bag_mask[j1] != 0;
+    uint64_t valid = uint64_t(__ballot_sync(0xffffffffu, ok0)) |
+                     (uint64_t(__ballot_sync(0xffffffffu, ok1)) << 32);
+    cnt += __popcll(valid);
+    while (valid) {  // warp-uniform
+      Vec rows[kBatch];
+      int n = 0;
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (valid) {
+          const int p = __ffsll(static_cast<long long>(valid)) - 1;
+          valid &= valid - 1;
+          const int id_lo = __shfl_sync(0xffffffffu, id0, p & 31);
+          const int id_hi = __shfl_sync(0xffffffffu, id1, p & 31);
+          const int64_t id = p < 32 ? id_lo : id_hi;
+          // As above; such a slot adds zero here.
+          rows[i] = col_ok && id >= 0 && id < n_rows ? __ldg(&table[id * row_vecs + c])
+                                                     : zero(Vec{});
+          n = i + 1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (i < n) add(acc, rows[i]);
+    }
+  }
+  if (col_ok) out[bag * row_vecs + c] = mean ? divide(acc, fmaxf(float(cnt), 1.f)) : acc;
+}
+
 template <typename Vec, typename M>
 void launch(const void* table, const void* ids, const void* mask, void* out, int64_t V, int64_t B,
             int L, int64_t row_vecs, int mean, cudaStream_t st) {
-  const int64_t grid = (B + kWarps - 1) / kWarps;
-  embedding_bag_kernel<Vec, M><<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
-      static_cast<const Vec*>(table), static_cast<const int32_t*>(ids),
-      static_cast<const M*>(mask), static_cast<Vec*>(out), V, B, L, row_vecs, mean);
+  const auto* t = static_cast<const Vec*>(table);
+  const auto* i = static_cast<const int32_t*>(ids);
+  const auto* m = static_cast<const M*>(mask);
+  auto* o = static_cast<Vec*>(out);
+  if (B >= 132 * 32) {  // one bag per warp already gives the 132 SMs 32 warps each
+    constexpr int kWarps = 8;
+    const int64_t grid = (B + kWarps - 1) / kWarps;
+    bag_slots_kernel<Vec, M, kWarps><<<static_cast<unsigned>(grid), 32 * kWarps, 0, st>>>(
+        t, i, m, o, V, B, L, row_vecs, mean);
+  } else {
+    constexpr int kWarps = 4;
+    const int64_t col_blocks = (row_vecs + 31) / 32;
+    const int64_t grid = (B * col_blocks + kWarps - 1) / kWarps;
+    bag_batched_kernel<Vec, M, kWarps><<<static_cast<unsigned>(grid), 32 * kWarps, 0, st>>>(
+        t, i, m, o, V, B, L, row_vecs, col_blocks, mean);
+  }
 }
 
 template <typename M>

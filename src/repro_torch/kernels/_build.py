@@ -115,13 +115,18 @@ def _build(out_dir: Path) -> Path:
     return final
 
 
+def library_path() -> Path:
+    """Where the library built from the present sources lives."""
+    return BUILD_ROOT / _source_hash() / LIB_NAME
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
-        path = BUILD_ROOT / _source_hash() / LIB_NAME
+        path = library_path()
         if not path.exists():
             t0 = time.perf_counter()
             path = _build(path.parent)

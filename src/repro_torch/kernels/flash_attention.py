@@ -1,4 +1,4 @@
-"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the Hopper flash-attention kernels (``csrc/flash_attention.cu``).
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the
 Pallas TPU kernel): causal (top-left aligned) or full attention with
@@ -8,7 +8,10 @@ D)``, v ``(B, Skv, KH, Dv)``, output ``(B, Sq, H, Dv)`` in q's type.
 Unlike the Pallas kernel it takes any ``Sq`` and ``Skv`` (ragged tiles
 are masked in the kernel); ``D`` and ``Dv`` are at most 128.
 
-CUDA tensors only, fp32 or bf16; the plain version for CPU tensors is
+CUDA tensors only, fp32 or bf16, one kernel for each: bf16 runs on the
+tensor cores (wgmma, K/V tiles by TMA: ``csrc/flash_attention_sm90.cuh``),
+fp32 on a scalar kernel that meets the fp32 tolerance (2e-5), which TF32
+would not.  The plain version for CPU tensors is
 ``kernels.ref.flash_attention_ref``, chosen by ``kernels.ops``.  Each
 launch adds one to ``flash_attention.launches``; launches are on
 ``torch.cuda.current_stream()`` and never synchronise.

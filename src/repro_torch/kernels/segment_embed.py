@@ -2,7 +2,10 @@
 
 Counterpart of ``repro.kernels.segment_embed.embedding_bag`` (the Pallas
 TPU kernel): per bag, the masked sum (or mean, over ``max(count, 1)``)
-of the table rows its ids name.  An all-masked bag gives zeros.
+of the table rows its ids name.  An all-masked bag gives zeros.  The
+kernel walks each bag's valid slots in order, so its sums are bit-equal
+to the plain version's; it takes a latency design for small batches and
+a throughput design for large ones (``csrc/segment_embed.cu``).
 
 CUDA tensors only: an fp32 ``(V, D)`` table, int32 ``(B, L)`` ids and an
 int32 or bool ``(B, L)`` mask.  Ids on valid slots must lie in ``[0,

@@ -91,6 +91,74 @@ def test_plain_flash_takes_ragged_lengths(B, Sq, Skv, H, KH, D, Dv, causal,
     assert err < tol, err
 
 
+# bf16 cases of the tensor-core kernel's card tests (tests/test_torch_cuda.py),
+# with the serve head shape (H 16, D 64) at S 256: B, Sq, Skv, H, KH, D, Dv,
+# causal.
+BF16_EDGES = [
+    (2, 128, 128, 4, 2, 16, 16, True),
+    (1, 256, 256, 8, 8, 64, 64, True),
+    (1, 128, 128, 4, 4, 128, 128, True),
+    (1, 70, 130, 4, 2, 32, 24, True),
+    (2, 128, 256, 4, 1, 32, 32, True),
+    (2, 128, 256, 4, 2, 64, 64, False),
+    (1, 70, 130, 4, 2, 32, 32, True),
+    (1, 130, 70, 2, 2, 16, 16, True),
+    (1, 1, 1, 2, 1, 16, 16, True),
+    (2, 65, 65, 4, 2, 32, 32, True),
+    (1, 256, 256, 16, 16, 64, 64, True),
+    (1, 300, 300, 4, 2, 6, 10, True),
+]
+
+
+def _tensor_core_rounding(q, k, v, causal, block=128):
+    """The bf16 tensor-core kernel's arithmetic in plain torch: bf16 q, k,
+    v unscaled; S = q k^T in fp32; the scale applied to S as c = scale *
+    log2(e) with p = 2^(s c - m) over 128-key tiles (online max and sum in
+    fp32); P rounded to bf16 before P V; fp32 accumulation; the output
+    divided by max(l, 1e-30) and rounded to bf16."""
+    B, Sq, H, D = q.shape
+    _, Skv, KH, Dv = v.shape
+    c = torch.tensor(D ** -0.5, dtype=torch.float32) * 1.4426950408889634
+    qf = q.float().reshape(B, Sq, KH, H // KH, D)
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, Sq, KH, H // KH), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Sq, KH, H // KH, Dv))
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, block):
+        keys = torch.arange(k0, min(k0 + block, Skv))[None, :]
+        s = torch.einsum("bqkgd,bskd->bqkgs", qf, kf[:, k0:k0 + block])
+        if causal:
+            s = s.masked_fill((keys > rows)[None, :, None, None, :],
+                              float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgs,bskv->bqkgv", p.to(torch.bfloat16).float(),
+            vf[:, k0:k0 + block])
+        m = m_new
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.reshape(B, Sq, H, Dv).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,Dv,causal", BF16_EDGES)
+def test_tensor_core_rounding_meets_the_bf16_tolerance(B, Sq, Skv, H, KH, D,
+                                                       Dv, causal):
+    """The rounding the bf16 kernel adopts (P in bf16, the scale on S)
+    stays within 3e-2 of the JAX package's reference by construction."""
+    rng = np.random.default_rng(Sq * 7 + Skv + D)
+    q, k, v = _qkv(rng, B, Sq, Skv, H, KH, D, Dv)
+    jq, jk, jv = (jnp.asarray(a, "bfloat16") for a in (q, k, v))
+    want = flash_attention_ref(jq, jk, jv, causal=causal)
+    got = _tensor_core_rounding(*(_torch(a, "bfloat16") for a in (q, k, v)),
+                                causal)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, Sq, H, Dv)
+    err = float(np.abs(_np32(got) - _np32(want)).max())
+    assert err < 3e-2, err
+
+
 def test_plain_flash_softmax_scale_and_masked_rows_finite():
     """An explicit ``softmax_scale`` is honoured, and with Sq > Skv under
     the top-left causal mask every row still sees key 0 (no NaN)."""

@@ -16,7 +16,7 @@ from repro_torch.core.eclat import mine_bitmap
 from repro_torch.core.prepost import mine_prepost_device
 from repro_torch.data.transactions import (gen_dense_tabular,
                                            gen_powerlaw_baskets)
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.bitmap_diff import bitmap_diff_es
 from repro_torch.kernels.bitmap_intersect import bitmap_intersect_es
 from repro_torch.kernels.compact import compact_gather
@@ -238,6 +238,19 @@ def test_slice2_engines_on_card_equal_cpu(cuda_device, scheme):
     (1, 200, 200, 4, 4, 64, 64, True, torch.bfloat16, 3e-2),
     (1, 70, 130, 4, 2, 32, 24, False, torch.float32, 2e-5),
     (1, 130, 70, 2, 2, 16, 16, True, torch.float32, 2e-5),
+    # bf16 runs on the tensor-core kernel: its own edges
+    (2, 128, 128, 4, 2, 16, 16, True, torch.bfloat16, 3e-2),
+    (1, 256, 256, 8, 8, 64, 64, True, torch.bfloat16, 3e-2),
+    (1, 128, 128, 4, 4, 128, 128, True, torch.bfloat16, 3e-2),
+    (1, 70, 130, 4, 2, 32, 24, True, torch.bfloat16, 3e-2),
+    (2, 128, 256, 4, 1, 32, 32, True, torch.bfloat16, 3e-2),
+    (2, 128, 256, 4, 2, 64, 64, False, torch.bfloat16, 3e-2),
+    (1, 70, 130, 4, 2, 32, 32, True, torch.bfloat16, 3e-2),
+    (1, 130, 70, 2, 2, 16, 16, True, torch.bfloat16, 3e-2),
+    (1, 1, 1, 2, 1, 16, 16, True, torch.bfloat16, 3e-2),
+    (2, 65, 65, 4, 2, 32, 32, True, torch.bfloat16, 3e-2),
+    (1, 1024, 1024, 16, 16, 64, 64, True, torch.bfloat16, 3e-2),
+    (1, 300, 300, 4, 2, 6, 10, True, torch.bfloat16, 3e-2),  # plain-load fill
 ])
 def test_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, H, KH, D, Dv,
                                     causal, dtype, tol):
@@ -253,6 +266,56 @@ def test_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, H, KH, D, Dv,
     assert got.dtype == dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err < tol, err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_kernel_takes_any_softmax_scale(cuda_device, dtype, tol):
+    """A positive scale is folded into the exponent (bf16); zero and
+    negative scales take the kernel's multiply-first branch."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = (torch.randn((1, 200, 4, 64), generator=g,
+                           device=cuda_device).to(dtype) for _ in range(3))
+    for scale in (0.3, -0.3, 0.0):
+        got = ops.flash_attention(q, k, v, softmax_scale=scale)
+        want = ops.flash_attention(q, k, v, softmax_scale=scale,
+                                   backend="plain")
+        err = (got.float() - want.float()).abs().max().item()
+        assert err < tol, (scale, err)
+
+
+def _sass_by_function(lib) -> dict:
+    """``cuobjdump -sass`` of the kernels' library, split by function."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def test_bf16_flash_kernel_runs_on_the_tensor_cores(cuda_device):
+    """The bf16 kernel's SASS holds warpgroup MMAs (HGMMA); the fp32
+    kernel's holds no tensor-core MMA at all."""
+    _build.load()
+    funcs = _sass_by_function(_build.library_path())
+    bf16 = {k: v for k, v in funcs.items() if "flash_wgmma_kernel" in k}
+    fp32 = {k: v for k, v in funcs.items() if "flash_attn_kernel" in k}
+    assert bf16 and fp32, sorted(funcs)
+    for name, sass in bf16.items():
+        assert "HGMMA" in sass, name
+    for name, sass in fp32.items():
+        assert "HGMMA" not in sass and "HMMA" not in sass, name
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -288,6 +351,7 @@ def test_bag_kernel_matches_plain(cuda_device, V, D, B, L, comb):
                                  backend="plain")
         assert embedding_bag.launches == before + 1
         assert (got - want).abs().max().item() < 1e-5
+        assert torch.equal(got, want)
         assert torch.equal(got[0], torch.zeros_like(got[0]))
     # A table that is not 16-byte aligned takes the scalar path.
     flat = torch.zeros(V * D + 1, device=cuda_device)
@@ -296,6 +360,26 @@ def test_bag_kernel_matches_plain(cuda_device, V, D, B, L, comb):
     got = ops.embedding_bag(off, ids, mask, combiner=comb)
     want = ops.embedding_bag(off, ids, mask, combiner=comb, backend="plain")
     assert (got - want).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("V,D,B,L,comb", [
+    (5000, 256, 40, 100, "mean"),   # past the 64 slots a warp holds at once
+    (700, 12, 40, 100, "sum"),      # ... on the scalar path
+    (3000, 64, 5000, 30, "mean"),   # the large-batch design
+])
+def test_bag_kernel_is_bit_equal(cuda_device, V, D, B, L, comb):
+    """Slots are added in order, so the sums equal the plain version's bit
+    for bit, here with a bag whose only valid slot is the last."""
+    rng = np.random.default_rng(B + L)
+    table, ids, mask = _bag_inputs(rng, V, D, B, L, cuda_device)
+    mask[1] = False
+    mask[1, -1] = True
+    for m in (mask, mask.to(torch.int32)):
+        got = ops.embedding_bag(table, ids, m, combiner=comb)
+        want = ops.embedding_bag(table, ids, m, combiner=comb,
+                                 backend="plain")
+        assert torch.equal(got, want)
+        assert torch.equal(got[1], table[ids[1, -1].long()])
 
 
 def test_bag_kernel_row_offsets_are_64_bit(cuda_device):
