@@ -434,11 +434,13 @@ def _random_nlist(rng, n: int, span: int) -> np.ndarray:
 def _check_nlists(dev, rng, agree) -> None:
     """nlist_merge (through nlist_presize and nlist_intersect) and the
     Z-merge scatter (through nlist_scatter and nlist_extend) against
-    their plain versions: operand lengths 0, 1, every bucket edge and
-    one past 32768 (a 65536-wide match table), ES on and off, whole pool
-    slabs equal with skipped (out_off >= cap) pairs untouched.  The plain
-    merge takes one masked step per loop iteration for the whole batch,
-    so the 32769-code walk gets a batch of its own."""
+    their plain versions: operand lengths 0, 1, every bucket edge, every
+    window edge of the merge kernel (31-33, 63-65) and one past 32768 (a
+    65536-wide match table), ES on and off, an abort on the first step,
+    whole pool slabs equal with skipped (out_off >= cap) pairs
+    untouched.  The plain merge takes one masked step per loop iteration
+    for the whole batch, so the 32769-code walk gets a batch of its
+    own."""
     from repro_torch.core.bitmap import nl_pad_len
 
     edges = [0, 1, 7, 8, 9, 31, 32, 33, 127, 128, 129, 511, 512, 513,
@@ -450,6 +452,21 @@ def _check_nlists(dev, rng, agree) -> None:
     _nlist_batch(dev, rng, agree, pairs,
                  plans=((True, 1), (True, 400), (False, 1)),
                  extend=((True, 30), (False, 1)))
+    # The merge kernel's window edges (32-code windows): every pair of
+    # lengths around one and two windows.
+    win = [0, 1, 31, 32, 33, 63, 64, 65]
+    pairs = [(_random_nlist(rng, n, 400), _random_nlist(rng, m, 400))
+             for n in win for m in win]
+    _nlist_batch(dev, rng, agree, pairs,
+                 plans=((True, 1), (True, 150), (False, 1)),
+                 extend=((True, 150),))
+    # rho < minsup: with ES every walk aborts on its first step.
+    got = _nlist_batch(dev, rng, agree, pairs, plans=((True, 10 ** 6),),
+                       extend=())
+    walked = np.array([len(u) > 0 and len(v) > 0 for u, v in pairs])
+    need(bool((got[3].cpu().numpy() == walked).all())
+         and bool((got[5].cpu().numpy() != walked).all()),
+         "rho < minsup: not every walk aborted on its first step")
     # One U of 32769 codes, every one a descendant of V's single code: the
     # walk goes through all of U (one Z-merge group of 32769 matches).
     n_long = 32769
@@ -1508,6 +1525,8 @@ def phase_timing_slice2(dev, declat, prepost) -> dict:
     del want
     out_slot, child_len, support = got[0], got[1], got[2]
     cmps_total = int(got[3].sum().item())
+    # The longest walk is the kernel's floor: a chain of dependent steps.
+    cmps_longest = int(got[3].max().item())
     merge_bytes = (12 * int(lens.sum())                   # every N-list once
                    + P * lu * 4                           # match table
                    + P * 5 * 4 + P * 5 * 4 + P)           # columns, outputs
@@ -1515,15 +1534,19 @@ def phase_timing_slice2(dev, declat, prepost) -> dict:
     merge_bound, merge_by = _bound(merge_bytes, merge_ops)
     merge_ms = time_ms(merge, 20)
     merge_plain_ms = time_ms(lambda: merge("plain"), 1)
+    ns_per_cmp = merge_ms * 1e6 / max(cmps_longest, 1)
     say(f"timing nlist_merge (presize, {P} pairs, lu {lu}, "
         f"{cmps_total} comparisons, equal to plain): kernel "
         f"{merge_ms:.4f} ms, plain {merge_plain_ms:.4f} ms, bound "
         f"{merge_bound:.4f} ms ({merge_by}: {merge_bytes} B, {merge_ops} "
-        f"ops)")
+        f"ops); longest pair {cmps_longest} comparisons, kernel "
+        f"{ns_per_cmp:.2f} ns per comparison of it")
     out["nlist_merge"] = {
         "ms": merge_ms, "plain_ms": merge_plain_ms, "bound_ms": merge_bound,
         "bound_by": merge_by, "library_ms": None, "max_abs_err": merge_err,
         "pairs": P, "lu": lu, "comparisons": cmps_total,
+        "longest_pair_comparisons": cmps_longest,
+        "ns_per_longest_comparison": ns_per_cmp,
         "bytes": merge_bytes, "ops": merge_ops}
 
     # -- zmerge_scatter: that pre-pass's scatter into tight survivor

@@ -3,13 +3,14 @@
 * :func:`nlist_merge` — counterpart of ``repro.kernels.nlist_merge.
   nlist_merge`` (the Pallas TPU kernel) fused with the operand gather and
   the Z-merge group count of ``repro.kernels.ops._nlist_presize_impl``:
-  one thread per pair walks both operand N-lists straight from the pool
-  slab and returns the match table, exact child lengths, supports,
+  a warp per pair traces the sequential two-pointer walk through
+  32-code windows of both operand N-lists, read straight from the pool
+  slab, and returns the match table, exact child lengths, supports,
   comparison and check counts and aliveness.
 * :func:`zmerge_scatter` — counterpart of ``repro.kernels.ref.
-  _nl_zmerge_scatter`` (jnp in the JAX package, no Pallas kernel): it
-  Z-merges a match table and writes the child N-lists into the pool at
-  ``out_off``, in place.
+  _nl_zmerge_scatter`` (jnp in the JAX package, no Pallas kernel): a
+  warp per pair reads its match-table row coalesced, Z-merges it and
+  writes the child N-list into the pool at ``out_off``, in place.
 
 CUDA int32 tensors only; the plain versions for CPU tensors live in
 ``kernels.ref`` and are chosen by ``kernels.ops``.  Each launch adds one

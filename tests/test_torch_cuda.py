@@ -205,6 +205,143 @@ def test_nlist_kernels_match_plain(cuda_device, es):
     assert zmerge_scatter.launches == s0 + 8
 
 
+def _nlist_pairs_pool(rng, pairs, dev):
+    """The (U, V) code lists of ``pairs`` as extents of one slab with
+    room for the children after them: (codes, cols, bump)."""
+    cols, ext, bump = [[], [], [], []], [], 0
+    for u, v in pairs:
+        for arr, c in ((u, 0), (v, 2)):
+            ext.append((bump, arr))
+            cols[c].append(bump)
+            cols[c + 1].append(len(arr))
+            bump += len(arr)
+    cap = bump + sum(cols[1]) + 64
+    codes = rng.integers(0, 1000, (cap, 3)).astype(np.int32)
+    for off, arr in ext:
+        codes[off:off + len(arr)] = arr
+    return (torch.from_numpy(codes).to(dev),
+            [np.asarray(c, np.int32) for c in cols], bump)
+
+
+def _nlist_case(dev, pairs, rho, plans, *, lu=None, out_off_fn=None):
+    """Presize, scatter and extend on the card equal their plain versions
+    for each (early_stop, minsup) of ``plans``; returns the last
+    presize."""
+    rng = np.random.default_rng(9)
+    codes, cols, bump = _nlist_pairs_pool(rng, pairs, dev)
+    cap = int(codes.shape[0])
+    lu = lu or max(8, 1 << int(np.ceil(np.log2(max(int(cols[1].max()), 1)))))
+    lv = max(8, 1 << int(np.ceil(np.log2(max(int(cols[3].max()), 1)))))
+    rho = np.asarray(rho, np.int32)
+    for es, minsup in plans:
+        got = ops.nlist_presize(codes, *cols, rho, minsup, lu=lu, lv=lv,
+                                early_stop=es)
+        want = ops.nlist_presize(codes, *cols, rho, minsup, lu=lu, lv=lv,
+                                 early_stop=es, backend="plain")
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w), (es, minsup)
+        out_off = (bump + np.concatenate([[0], np.cumsum(cols[1])[:-1]])
+                   ).astype(np.int32)
+        if out_off_fn is not None:
+            out_off = out_off_fn(out_off, cap)
+        ck, cp = codes.clone(), codes.clone()
+        a = ops.nlist_scatter(ck, got[0], *cols, out_off, lu=lu, lv=lv)
+        b = ops.nlist_scatter(cp, want[0], *cols, out_off, lu=lu, lv=lv,
+                              backend="plain")
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        ck, cp = codes.clone(), codes.clone()
+        a = ops.nlist_extend(ck, *cols, out_off, rho, minsup, lu=lu, lv=lv,
+                             early_stop=es)
+        b = ops.nlist_extend(cp, *cols, out_off, rho, minsup, lu=lu, lv=lv,
+                             early_stop=es, backend="plain")
+        for g, w in zip(a, b, strict=True):
+            assert torch.equal(g, w), (es, minsup)
+    return got
+
+
+def _sorted_nlist(rng, n, span=300):
+    pre = np.sort(rng.choice(span, n, replace=False))
+    return np.stack([pre, rng.integers(0, span, n),
+                     rng.integers(1, 20, n)], 1).astype(np.int32)
+
+
+NL_EDGES = [0, 1, 31, 32, 33, 63, 64, 65]
+
+
+@pytest.mark.parametrize("es", [True, False])
+def test_nlist_kernels_at_window_edges(cuda_device, es):
+    """Every pair of window-edge lengths (0, 1, 31-33, 63-65)."""
+    rng = np.random.default_rng(12)
+    pairs = [(_sorted_nlist(rng, n), _sorted_nlist(rng, m))
+             for n in NL_EDGES for m in NL_EDGES]
+    rho = [int(v[:, 2].sum()) for _, v in pairs]
+    _nlist_case(cuda_device, pairs, rho, [(es, 1), (es, 80), (es, 400)])
+
+
+def test_nlist_kernels_abort_on_the_first_step(cuda_device):
+    """rho < minsup: the walk aborts on step 1, a j-step, an i-step
+    without a match, or a match."""
+    j_first = (np.array([[50, 10 ** 6, 2]], np.int32),
+               _sorted_nlist(np.random.default_rng(1), 40, 40))
+    i_first = (np.array([[0, 1, 2], [60, 5, 3]], np.int32),
+               np.array([[10, 50, 4], [20, 3, 1]], np.int32))
+    match_first = (np.array([[11, 5, 2]], np.int32),
+                   np.array([[10, 50, 4]], np.int32))
+    got = _nlist_case(cuda_device, [j_first, i_first, match_first],
+                      [5, 5, 5], [(False, 100), (True, 100)])
+    assert got[3].tolist() == [1, 1, 1] and not got[5].any().item()
+
+
+@pytest.mark.parametrize("row", [0, 31, 32, 40])
+def test_nlist_kernels_abort_on_an_i_step(cuda_device, row):
+    """Every U code matches V's one code; U code ``row``'s negative
+    frequency makes the guard fail on its own i-step."""
+    k = np.arange(48)
+    u = np.stack([10 + k, 1000 - k, np.ones(48)], 1).astype(np.int32)
+    u[row, 2] = -(row + 100)
+    v = np.array([[5, 10 ** 6, 7]], np.int32)
+    got = _nlist_case(cuda_device, [(u, v)], [7], [(False, 7), (True, 7)])
+    assert got[3].tolist() == [row + 1] and got[4].tolist() == [0]
+    assert not got[5].any().item()
+
+
+def test_nlist_scatter_with_negative_out_off(cuda_device):
+    """Destinations below 0 are skipped one by one, like those past the
+    slab; the pairs still report their child lengths."""
+    rng = np.random.default_rng(13)
+    pairs = [(_sorted_nlist(rng, 40), _sorted_nlist(rng, 20))
+             for _ in range(6)]
+
+    def shift(out_off, cap):
+        out = out_off.copy()
+        out[0], out[1], out[2] = -5, -1000, cap - 3    # straddle both ends
+        return out
+    _nlist_case(cuda_device, pairs, [0] * 6, [(False, 0), (True, 0)],
+                out_off_fn=shift)
+
+
+def test_nlist_kernels_with_lu_above_every_length(cuda_device):
+    """A match table wider than every U (lu 1000, not a multiple of 4):
+    the rest of each row is the sentinel, rows are not 16-byte aligned."""
+    rng = np.random.default_rng(14)
+    pairs = [(_sorted_nlist(rng, n), _sorted_nlist(rng, 50))
+             for n in (0, 1, 33, 70)]
+    rho = [int(v[:, 2].sum()) for _, v in pairs]
+    for lu in (1000, 1024):
+        _nlist_case(cuda_device, pairs, rho, [(True, 20), (False, 1)], lu=lu)
+
+
+def test_nlist_kernels_on_a_32769_code_walk(cuda_device):
+    """One U of 32,769 codes, each a descendant of V's one code: the walk
+    goes through all of U, in one group, through a 65,536-wide table."""
+    n = 32769
+    k = np.arange(n)
+    u = np.stack([10 + k, 10 ** 8 - k, 1 + k % 5], 1).astype(np.int32)
+    v = np.array([[5, 10 ** 9, 3]], np.int32)
+    got = _nlist_case(cuda_device, [(u, v)], [3], [(True, 1)], lu=65536)
+    assert got[3].tolist() == [n] and got[1].tolist() == [1]
+
+
 @pytest.mark.parametrize("scheme", ["declat", "adaptive", "prepost"])
 def test_slice2_engines_on_card_equal_cpu(cuda_device, scheme):
     db = gen_dense_tabular(n_trans=500, n_cols=9, vals_per_col=4, seed=0)
