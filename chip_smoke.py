@@ -49,9 +49,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    equal to the plain path's, scores recounted) and ``user_embed`` for
    512 users;
 9. holds each mining path's first dispatch at real size against its
-   plain version, then times every kernel with CUDA events at its path's
-   shapes, beside its bound, its plain version and, where one PyTorch
-   call computes the same function, that call (with the kernel / library
+   plain version (the ES scan and the dEclat difference also repacked at
+   8 and 1 words a block, the CLI default and the adaptive smoke knob),
+   then times every kernel with CUDA events at its path's shapes, beside
+   its bound, its plain version and, where one PyTorch call computes the
+   same function, that call (with the kernel / library
    ratio, and flash attention's TFLOP/s and the EmbeddingBag's GB/s).
 
 Every path runs with every kernel's launch count set to 0 just before
@@ -1308,16 +1310,23 @@ def _bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(dev, main) -> dict:
-    import torch
+# The widths each ES kernel is timed at: the paper packing (128 words a
+# block), the CLI's default (8) and the adaptive smoke knob (1).
+ES_WIDTHS = (128, 8, 1)
+
+
+def _es_dispatch(dev, time_ms, bdb, ms, *, diff: bool, iters: int) -> dict:
+    """A mining path's first ES dispatch (every level-1 pair, tidset
+    operands) on a fresh slab: held against its plain version on a copy
+    of the same slab (counts, blocks, alive and both slabs, exactly),
+    then timed beside its bound and its plain version.  ``diff`` picks
+    the dEclat difference (``screen_and_diff``), else the Eclat scan."""
     from repro_torch.core.rowstore import DeviceRowStore
     from repro_torch.kernels import ops
 
-    time_ms = _timer(dev)
-    bdb, ms = main["bdb"], main["minsup"]
+    name = "bitmap_diff_es" if diff else "bitmap_intersect_es"
+    fused = ops.screen_and_diff if diff else ops.screen_and_intersect
     nb, bw = bdb.n_blocks, bdb.block_words
-
-    # The main path's first dispatch: every level-1 pair on a fresh slab.
     store = DeviceRowStore(bdb.bitmaps, capacity=bdb.n_items + 4096,
                            device=dev)
     ia, ib = np.triu_indices(bdb.n_items, 1)
@@ -1327,47 +1336,101 @@ def phase_timing(dev, main) -> dict:
         ia.astype(np.int32), ib.astype(np.int32), slots,
         bdb.supports[ia].astype(np.int32)])
 
-    def scan(backend="auto"):
-        return ops.screen_and_intersect(store.rows, store.suffix, ua, vb, sl,
-                                        rho, ms, backend=backend)
+    def run(backend="auto"):
+        return fused(store.rows, store.suffix, ua, vb, sl, rho, ms,
+                     backend=backend)
 
-    # The dispatch at this size against its plain version on a copy of the
-    # same fresh slab: counts, blocks, alive and both slabs, exactly.
     rows_p, suffix_p = store.rows.clone(), store.suffix.clone()
-    _, _, cnt, blocks, alive = scan()
+    _, _, cnt, blocks, alive = run()
     got = (cnt, blocks, alive, store.rows, store.suffix)
-    want = ops.screen_and_intersect(rows_p, suffix_p, ua, vb, sl, rho, ms,
-                                    backend="plain")
-    want = (*want[2:], *want[:2])
-    scan_err = max(_max_err(g, w) for g, w in zip(got, want, strict=True))
-    need(scan_err == 0, f"fused dispatch at {P} pairs x {nb} blocks "
-                        f"disagrees with its plain version (max abs err "
-                        f"{scan_err})")
+    want = fused(rows_p, suffix_p, ua, vb, sl, rho, ms, backend="plain")
+    err = max(_max_err(g, w) for g, w in
+              zip(got, (*want[2:], *want[:2]), strict=True))
+    need(err == 0, f"{name}: first dispatch at {P} pairs x {nb} blocks x "
+                   f"{bw} words disagrees with its plain version (max abs "
+                   f"err {err})")
     del rows_p, suffix_p, want
     blocks_np = blocks.cpu().numpy().astype(np.int64)
-    n_surv = int((alive & (cnt >= ms)).sum().item())
+    sup = rho - cnt if diff else cnt
+    n_surv = int((alive & (sup >= ms)).sum().item())
     # Each input byte once: an operand row is needed up to the furthest
     # block any of its pairs scanned (rows are shared by many pairs).
     row_blocks = np.zeros(store.capacity, np.int64)
     np.maximum.at(row_blocks, ia, blocks_np)
     np.maximum.at(row_blocks, ib, blocks_np)
-    scan_bytes = (int(row_blocks.sum()) * (bw + 1) * 4    # row + suffix words
-                  + n_surv * (nb * bw + nb + 1) * 4       # child rows
-                  + P * 4 * 4 + P * 9)                    # columns, outputs
+    if diff:
+        nbytes = (int(row_blocks.sum()) * bw * 4          # operand words
+                  + len(np.unique(ia)) * (nb + 1) * 4)    # U suffix tables
+    else:
+        nbytes = int(row_blocks.sum()) * (bw + 1) * 4     # row + suffix
+    nbytes += (n_surv * (nb * bw + nb + 1) * 4            # child rows
+               + P * 4 * 4 + P * 9)                       # columns, outputs
     blocks_sum = int(blocks_np.sum())
-    scan_ops = 3 * blocks_sum * bw                        # and, popc, add
-    scan_stream = 2 * blocks_sum * (bw + 1) * 4           # bytes it streams
-    scan_bound, scan_by = _bound(scan_bytes, scan_ops)
-    scan_ms = time_ms(scan, 20)
-    scan_plain_ms = time_ms(lambda: scan("plain"), 3)
+    n_ops = 3 * blocks_sum * bw                    # and(n), popc, add
+    stream = 2 * blocks_sum * (bw + 1) * 4         # bytes the walk streams
+    bound, by = _bound(nbytes, n_ops)
+    # Words a pair loads past its abort: the rest of the abort's step (a
+    # step is 512 words for each warp the pair gets); the work counter
+    # does not see them.  Scan only: diff does not load zero-mass blocks.
+    # (A library built from a tree before the stepped scan has no
+    # repro_scan_warps: the paired runs time such a tree too.)
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    warps = (int(lib.repro_scan_warps(P, nb, bw))
+             if hasattr(lib, "repro_scan_warps") else None)
+    over_words = 0
+    if not diff and warps:
+        step = warps * 512
+        dead = ~alive.cpu().numpy()
+        end_word = blocks_np[dead] * bw               # words through the abort
+        loaded = np.minimum(-(-end_word // step) * step, nb * bw)
+        over_words = int((loaded - end_word).sum())
+    ms_k = time_ms(run, iters)
+    ms_p = time_ms(lambda: run("plain"), 3)
     del store
-    say(f"timing bitmap_intersect_es (fused, {P} pairs x {nb} blocks x {bw} "
-        f"words, blocks_done {blocks_sum}, {n_surv} survivors, equal to "
-        f"plain): kernel "
-        f"{scan_ms:.4f} ms, plain {scan_plain_ms:.4f} ms, bound "
-        f"{scan_bound:.4f} ms ({scan_by}: {scan_bytes} B, {scan_ops} ops); "
-        f"streams {scan_stream} B = "
-        f"{scan_stream / (scan_ms * 1e-3) / 1e9:.1f} GB/s")
+    say(f"timing {name} (fused, {P} pairs x {nb} blocks x {bw} words, "
+        f"blocks_done {blocks_sum}, {n_surv} survivors, equal to plain): "
+        f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound:.4f} ms "
+        f"({by}: {nbytes} B, {n_ops} ops); streams {stream} B = "
+        f"{stream / (ms_k * 1e-3) / 1e9:.1f} GB/s; {warps} warp(s) a pair"
+        + ("" if diff or not warps else f", {2 * 4 * over_words} B of "
+                                          f"operand words read past the "
+                                          f"aborts"))
+    return {"ms": ms_k, "plain_ms": ms_p, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "max_abs_err": err, "pairs": P,
+            "n_blocks": nb, "block_words": bw, "blocks_done": blocks_sum,
+            "survivors": n_surv, "bytes": nbytes, "ops": n_ops,
+            "streamed_bytes": stream, "warps_per_pair": warps,
+            "bytes_past_abort": (2 * 4 * over_words if warps and not diff
+                                 else None)}
+
+
+def _es_widths(dev, time_ms, name, bdb, ms, *, diff: bool, dataset: str):
+    """``_es_dispatch`` at every width of ``ES_WIDTHS``: ``bdb`` is the
+    path's own packing (128 words a block); the other widths repack the
+    same seeded stream as the miner packs it (``stream_paper_dataset``
+    with ``block_words``).  Returns the 128-word entry under ``name``
+    (its ``max_abs_err`` the largest over the widths) and each other
+    width under ``name_bw<w>``."""
+    from repro_torch.data.transactions import stream_paper_dataset
+    out = {}
+    for bw in ES_WIDTHS:
+        db = bdb if bw == bdb.block_words else stream_paper_dataset(
+            dataset, scale=1.0, seed=0, block_words=bw)[0]
+        key = name if bw == bdb.block_words else f"{name}_bw{bw}"
+        out[key] = _es_dispatch(dev, time_ms, db, ms, diff=diff,
+                                iters=20 if bw == bdb.block_words else 5)
+    out[name]["max_abs_err"] = max(t["max_abs_err"] for t in out.values())
+    return out
+
+
+def phase_timing(dev, main) -> dict:
+    import torch
+    from repro_torch.kernels import ops
+
+    time_ms = _timer(dev)
+    out = _es_widths(dev, time_ms, "bitmap_intersect_es", main["bdb"],
+                     main["minsup"], diff=False, dataset="kosarak-paper")
 
     # The main path's largest compaction.
     rows_shape, suf_shape, perm_np = max(
@@ -1404,13 +1467,7 @@ def phase_timing(dev, main) -> dict:
         f"library {comp_lib_ms:.4f} ms, bound {comp_bound:.4f} ms "
         f"({comp_by}: {comp_bytes} B)")
     return {
-        "bitmap_intersect_es": {
-            "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound,
-            "bound_by": scan_by, "library_ms": None,
-            "max_abs_err": scan_err, "pairs": P,
-            "blocks_done": blocks_sum, "survivors": n_surv,
-            "bytes": scan_bytes, "ops": scan_ops,
-            "streamed_bytes": scan_stream},
+        **out,
         "compact_gather": {
             "ms": comp_ms, "plain_ms": comp_plain_ms, "bound_ms": comp_bound,
             "bound_by": comp_by, "library_ms": comp_lib_ms,
@@ -1429,65 +1486,18 @@ def phase_timing_slice2(dev, declat, prepost) -> dict:
     import torch
     from repro_torch.core.bitmap import (NL_SENTINEL, nl_pad_len,
                                          nl_pad_len_np)
-    from repro_torch.core.rowstore import DeviceRowStore, NListPool
+    from repro_torch.core.rowstore import NListPool
     from repro_torch.kernels import ops
 
     time_ms = _timer(dev)
     out = {}
 
     # -- bitmap_diff_es: the declat path's first dispatch (every level-1
-    # pair, tidset operands -> level-2 diffsets) on a fresh slab.
-    bdb, ms = declat["bdb"], declat["minsup"]
-    nb, bw = bdb.n_blocks, bdb.block_words
-    store = DeviceRowStore(bdb.bitmaps, capacity=bdb.n_items + 4096,
-                           device=dev)
-    ia, ib = np.triu_indices(bdb.n_items, 1)
-    P = int(ia.size)
-    slots = store.alloc(P)
-    rho_np = bdb.supports[ia].astype(np.int32)
-    _, (ua, vb, sl, rho) = ops.upload_columns(dev, [
-        ia.astype(np.int32), ib.astype(np.int32), slots, rho_np])
-
-    def diff(backend="auto"):
-        return ops.screen_and_diff(store.rows, store.suffix, ua, vb, sl, rho,
-                                   ms, backend=backend)
-
-    rows_p, suffix_p = store.rows.clone(), store.suffix.clone()
-    _, _, cnt, blocks, alive = diff()
-    want = ops.screen_and_diff(rows_p, suffix_p, ua, vb, sl, rho, ms,
-                               backend="plain")
-    got = (cnt, blocks, alive, store.rows, store.suffix)
-    diff_err = max(_max_err(g, w) for g, w in
-                   zip(got, (*want[2:], *want[:2]), strict=True))
-    need(diff_err == 0, f"first diff dispatch at {P} pairs x {nb} blocks "
-                        f"disagrees with its plain version (max abs err "
-                        f"{diff_err})")
-    del rows_p, suffix_p, want
-    blocks_np = blocks.cpu().numpy().astype(np.int64)
-    n_surv = int((alive & (rho - cnt >= ms)).sum().item())
-    row_blocks = np.zeros(store.capacity, np.int64)
-    np.maximum.at(row_blocks, ia, blocks_np)
-    np.maximum.at(row_blocks, ib, blocks_np)
-    diff_bytes = (int(row_blocks.sum()) * bw * 4          # operand words
-                  + len(np.unique(ia)) * (nb + 1) * 4     # U suffix tables
-                  + n_surv * (nb * bw + nb + 1) * 4       # child rows
-                  + P * 4 * 4 + P * 9)                    # columns, outputs
-    blocks_sum = int(blocks_np.sum())
-    diff_ops = 3 * blocks_sum * bw                        # andn, popc, add
-    diff_bound, diff_by = _bound(diff_bytes, diff_ops)
-    diff_ms = time_ms(diff, 20)
-    diff_plain_ms = time_ms(lambda: diff("plain"), 3)
-    del store
-    say(f"timing bitmap_diff_es (fused, {P} pairs x {nb} blocks x {bw} "
-        f"words, blocks_done {blocks_sum}, {n_surv} survivors, equal to "
-        f"plain): kernel {diff_ms:.4f} ms, plain {diff_plain_ms:.4f} ms, "
-        f"bound {diff_bound:.4f} ms ({diff_by}: {diff_bytes} B, "
-        f"{diff_ops} ops)")
-    out["bitmap_diff_es"] = {
-        "ms": diff_ms, "plain_ms": diff_plain_ms, "bound_ms": diff_bound,
-        "bound_by": diff_by, "library_ms": None, "max_abs_err": diff_err,
-        "pairs": P, "blocks_done": blocks_sum, "survivors": n_surv,
-        "bytes": diff_bytes, "ops": diff_ops}
+    # pair, tidset operands -> level-2 diffsets) on a fresh slab, at each
+    # width.
+    out.update(_es_widths(dev, time_ms, "bitmap_diff_es", declat["bdb"],
+                          declat["minsup"], diff=True,
+                          dataset="accidents-paper"))
 
     # -- nlist_merge: the PrePost+ path's first pre-pass (every level-1
     # pair in one chunk, sorted by length bucket as the engine sorts).

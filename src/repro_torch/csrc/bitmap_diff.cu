@@ -10,24 +10,18 @@
 // su[k] - su[k+1] is positive, and alive is published as its own output.
 //
 // The device code is es_scan_kernel<true> of es_scan.cuh, shared with the
-// ES-scan kernel: one CTA per pair, operands read from the slab through
-// ua/vb, the same survivor epilogue (last block first, child suffix table
-// accumulated, non-survivor and out-of-range slots never written).  What
-// the diff instantiation changes: the bound is rho - count, no sv is read,
-// and the kernel TAKES the zero-block skip -- a visited block whose U mass
-// is zero is neither read nor counted (its Z words are written as zeros
-// where a Z output is asked for).  That skip is the point of diffsets on
-// dense data: deep diffset rows are mostly zero blocks.
+// ES-scan kernel (its note gives the design: stepped loads, the abort
+// found by a scan, a warp per pair or a few warps per pair when pairs are
+// few, the survivor epilogue in the same steps).  What the diff
+// instantiation changes: the bound is rho - count, no sv is read, and the
+// kernel TAKES the zero-block skip -- a block whose U mass is zero is
+// neither read nor counted (its Z words are written as zeros where a Z
+// output is asked for).  That skip is the point of diffsets on dense
+// data: deep diffset rows are mostly zero blocks.
 //
-// What bounds it: memory bandwidth.  Per pair it reads
-// 2 x (nonzero-mass blocks visited) x bw x 4 bytes of operand rows plus one
-// suffix word per visited block, and a survivor writes its child row and
-// suffix table; the arithmetic is one ANDN and one __popc per word.
-//
-// Known slack, left for later work: at bw = 1 (the adaptive smoke shape)
-// 127 of the 128 threads idle on every block, and each block costs a
-// CTA-wide reduction; scoring many blocks per warp with a prefix scan for
-// the abort point is the fix.
+// What bounds it: bytes -- the nonzero-mass operand blocks visited plus
+// the U suffix words, and a survivor's child row and suffix table; the
+// arithmetic is one ANDN and one __popc a word.
 //
 // C interface (ctypes): every pointer and the stream are void*, counts
 // are int; returns cudaGetLastError() after the launch.
@@ -43,7 +37,5 @@ extern "C" int repro_diff_scan(const void* U, const void* V, const void* su,
   const repro::ScanArgs a = repro::make_scan_args(
       U, V, su, nullptr, ua, vb, rho, n_pairs, nb, bw, es_minsup, 1, Z, cnt, blocks,
       alive, child_rows, child_suffix, slots, cap, gate_minsup);
-  repro::es_scan_kernel<true>
-      <<<n_pairs, repro::kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return repro::launch_scan<true>(a, static_cast<cudaStream_t>(stream));
 }

@@ -7,14 +7,9 @@
 // screen_and_intersect_ref, bit for bit.  The device code lives in
 // es_scan.cuh (es_scan_kernel<false>); its design is described there.
 //
-// What bounds it: memory bandwidth.  Per pair the scan reads
-// 2 x blocks_done x bw x 4 bytes of operand rows (plus two suffix words
-// per block) and a survivor writes its child row and suffix table; the
-// arithmetic is one AND and one __popc per word.  The design's answer is
-// the paper's: work that early stopping cuts is never read.
-//
-// Known slack, left for later work: with bw = 8 (the smoke/CLI shape) most
-// of the 128 threads idle; scoring several blocks per warp is the fix.
+// What bounds it: bytes (one AND and one __popc a word), and on a naive
+// walk the latency of the abort test between blocks; es_scan.cuh says how
+// the stepped scan answers both.
 //
 // C interface (ctypes): every pointer and the stream are void*, counts
 // are int; returns cudaGetLastError() after the launch.
@@ -31,9 +26,12 @@ extern "C" int repro_es_scan(const void* U, const void* V, const void* su,
   const repro::ScanArgs a = repro::make_scan_args(
       U, V, su, sv, ua, vb, rho, n_pairs, nb, bw, es_minsup, andnot, Z, cnt, blocks,
       alive, child_rows, child_suffix, slots, cap, gate_minsup);
-  repro::es_scan_kernel<false>
-      <<<n_pairs, repro::kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return repro::launch_scan<false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// Warps the scan gives each pair at this shape (1 = a warp per pair).
+extern "C" int repro_scan_warps(int n_pairs, int nb, int bw) {
+  return repro::scan_warps_per_pair(n_pairs, nb, bw);
 }
 
 extern "C" const char* repro_error_string(int err) {

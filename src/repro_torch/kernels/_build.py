@@ -44,6 +44,7 @@ SIGNATURES = {
     "repro_compact_gather": (_P, _P, _P, _L, _L, _L, _P),
     "repro_diff_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "repro_scan_warps": (_I, _I, _I),
     "repro_nlist_merge": (_P, _L, _P, _P, _P, _P, _P, _L, _L, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P),
     "repro_zmerge_scatter": (_P, _L, _P, _L, _P, _P, _P, _P, _P, _L, _P,

@@ -12,7 +12,7 @@ versions of its Hopper kernels for CPU tensors.  Tolerances are those of
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
 from repro.kernels.flash_attention import flash_attention as pallas_flash

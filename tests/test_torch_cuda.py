@@ -9,7 +9,7 @@ nor the JAX package, so it runs on the card's machine as it is:
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.core.bitmap import suffix_popcounts
 from repro_torch.core.eclat import mine_bitmap
@@ -41,7 +41,8 @@ def _rows(rng, n, nb, bw, dev):
 
 
 @pytest.mark.parametrize("mode", ["and", "andnot"])
-@pytest.mark.parametrize("nb,bw", [(9, 1), (7, 8), (3, 128)])
+@pytest.mark.parametrize("nb,bw", [(9, 1), (7, 8), (3, 128), (5, 3), (4, 256),
+                                   (11, 6)])
 def test_scan_kernel_matches_plain(cuda_device, mode, nb, bw):
     rng = np.random.default_rng(0)
     U, V = _rows(rng, 17, nb, bw, cuda_device), _rows(rng, 17, nb, bw,
@@ -118,7 +119,8 @@ def test_purity_guard_raises_on_a_host_sync(cuda_device):
     assert torch.cuda.get_sync_debug_mode() == before
 
 
-@pytest.mark.parametrize("nb,bw", [(9, 1), (7, 8), (3, 128), (84, 128)])
+@pytest.mark.parametrize("nb,bw", [(9, 1), (7, 8), (3, 128), (84, 128),
+                                   (5, 3), (4, 256), (11, 6)])
 def test_diff_kernel_matches_plain(cuda_device, nb, bw):
     rng = np.random.default_rng(3)
     U, V = _rows(rng, 17, nb, bw, cuda_device), _rows(rng, 17, nb, bw,
@@ -154,6 +156,84 @@ def test_fused_diff_kernel_matches_plain(cuda_device, es):
                                    early_stop=es, backend="plain")
         for g, w in zip(got, want, strict=True):
             assert torch.equal(g, w), minsup
+
+
+# (P, nb, bw, warps a pair): pairs spread over several warps while the
+# launch holds fewer than 64 warps an SM and the row gives each warp 512
+# words; 8500 pairs take a warp each; bw 3, 6 and 1 take the scalar path.
+LAYOUTS = [(6, 64, 128, 8), (6, 16, 128, 4), (6, 4, 256, 2),
+           (2300, 16, 128, 4), (8500, 4, 256, 1), (2300, 6, 8, 1),
+           (7, 5, 3, 1), (9, 11, 6, 1), (5, 300, 1, 1)]
+
+
+@pytest.mark.parametrize("P,nb,bw,warps", LAYOUTS)
+def test_scan_layouts_match_plain(cuda_device, P, nb, bw, warps):
+    """Both layouts and both load widths, with random (inconsistent)
+    suffix tables and a misaligned copy of the operands (4-byte loads)."""
+    rng = np.random.default_rng(10)
+    U, V = _rows(rng, P, nb, bw, cuda_device), _rows(rng, P, nb, bw,
+                                                     cuda_device)
+    su = torch.from_numpy(rng.integers(-50, nb * bw * 4, (P, nb + 1))
+                          .astype(np.int32)).to(cuda_device)
+    sv = torch.from_numpy(rng.integers(-50, nb * bw * 4, (P, nb + 1))
+                          .astype(np.int32)).to(cuda_device)
+    rho = torch.from_numpy(rng.integers(0, nb * bw * 16, P)
+                           .astype(np.int32)).to(cuda_device)
+    flat = torch.zeros(2 * U.numel() + 2, dtype=torch.int32,
+                       device=cuda_device)
+    Um = flat[1:1 + U.numel()].view(U.shape)
+    Vm = flat[1 + U.numel():1 + 2 * U.numel()].view(U.shape)
+    Um.copy_(U)
+    Vm.copy_(V)
+    assert _build.load().repro_scan_warps(P, nb, bw) == warps
+    for mode in ("and", "andnot"):
+        for minsup in (-4, 0, 1, nb * bw * 2, nb * bw * 6, nb * bw * 12):
+            want = ops.bitmap_intersect_es(U, V, su, sv, rho, minsup,
+                                           mode=mode, backend="plain")
+            for a, b in ((U, V), (Um, Vm)):
+                got = ops.bitmap_intersect_es(a, b, su, sv, rho, minsup,
+                                              mode=mode)
+                for g, w in zip(got, want, strict=True):
+                    assert torch.equal(g, w), (mode, minsup)
+    U[:, nb // 2] = 0                                # zero-mass U blocks
+    su = suffix_popcounts(U)
+    for minsup in (-4, 0, 1, nb * bw * 2, nb * bw * 6, nb * bw * 12):
+        want = ops.bitmap_diff_es(U, V, su, rho, minsup, backend="plain")
+        got = ops.bitmap_diff_es(U, V, su, rho, minsup)
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w), ("diff", minsup)
+
+
+@pytest.mark.parametrize("P,nb,bw,warps", LAYOUTS)
+def test_fused_layouts_match_plain(cuda_device, P, nb, bw, warps):
+    """The fused dispatches in both layouts: survivors written, slots -1
+    and cap skipped, non-survivor slots untouched."""
+    rng = np.random.default_rng(11)
+    n_rows = 16
+    cap = n_rows + P
+    slab = _rows(rng, cap, nb, bw, cuda_device)
+    slab[:4, nb // 2] = 0
+    suf = suffix_popcounts(slab)
+    ua = rng.integers(0, n_rows, P).astype(np.int32)
+    vb = rng.integers(0, n_rows, P).astype(np.int32)
+    slots = np.arange(n_rows, n_rows + P, dtype=np.int32)
+    slots[-1] = cap
+    slots[-2] = -1
+    rho = suf[torch.from_numpy(ua).long().to(cuda_device), 0].cpu().numpy()
+    nt = nb * bw * 32
+    for es in (True, False):
+        for minsup in (0, 1, nt // 32, nt // 8, nt // 5):
+            for fn, kw in ((ops.screen_and_intersect, {"mode": "and"}),
+                           (ops.screen_and_intersect, {"mode": "andnot"}),
+                           (ops.screen_and_diff, {})):
+                rk, sk = slab.clone(), suf.clone()
+                rp, sp = slab.clone(), suf.clone()
+                got = fn(rk, sk, ua, vb, slots, rho, minsup, early_stop=es,
+                         **kw)
+                want = fn(rp, sp, ua, vb, slots, rho, minsup, early_stop=es,
+                          backend="plain", **kw)
+                for g, w in zip(got, want, strict=True):
+                    assert torch.equal(g, w), (fn.__name__, kw, es, minsup)
 
 
 def _pool(rng, cap, extents, dev):

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
 from repro.core.bitmap import suffix_popcounts_np

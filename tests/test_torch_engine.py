@@ -17,7 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import bitmap as jbitmap
 from repro.core.eclat import mine_bitmap as j_mine_bitmap

@@ -9,7 +9,7 @@ half of them (int32 ``>>`` is arithmetic in the port's layout).
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
 from repro.core.bitmap import popcount32_np as j_popcount32_np

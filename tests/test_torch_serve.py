@@ -6,7 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 import jax
 
 from repro.configs import qwen1_5_0_5b as jqwen
