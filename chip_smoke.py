@@ -6,13 +6,17 @@
     python3 chip_smoke.py --profile traces/    # also profile each path
     python3 chip_smoke.py --seed 3             # serving phases' seed
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
+Builds the port's CUDA kernels from ``src/repro_torch/csrc``, and beside
+them the checked build (device asserts, ``kernels/_build.py``), both
+before any rank is spawned, and then:
 
 1. holds every kernel against its plain PyTorch version on the card: bit
    for bit the ES scan (both modes, ES on/off, minsup <= 0, bw 1/8/128
    up to 242 blocks), the dEclat difference (zero-mass U blocks, nb up
    to 84 and 242), both fused dispatches with untouched non-survivor and
-   out-of-range slots, the N-list merge and Z-merge scatter (lengths 0,
+   out-of-range slots, both scans with a per-pair threshold (random,
+   <= 0, INT32_MIN, above every bound; bw 128, 8 and 1; standalone and
+   fused), the N-list merge and Z-merge scatter (lengths 0,
    1, every bucket edge and 32769; whole pool slabs equal) and the
    compaction gather (rows, suffix tables, (cap, 3) codes); flash
    attention within 2e-5 (fp32, the scalar kernel) and 3e-2 (bf16, the
@@ -54,7 +58,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    then times every kernel with CUDA events at its path's shapes, beside
    its bound, its plain version and, where one PyTorch call computes the
    same function, that call (with the kernel / library
-   ratio, and flash attention's TFLOP/s and the EmbeddingBag's GB/s).
+   ratio, and flash attention's TFLOP/s and the EmbeddingBag's GB/s),
+   and the scan with a per-pair threshold at the (1,1) sharded shape;
+10. drives the sharded miner (``DistributedMiner`` on a ``(block, cls)``
+   mesh): (1,1) under NCCL in this process at kosarak-paper @ 1.0 (ES on
+   and off: phase 4's itemsets and counters) and @ 0.1 (the JAX
+   ``DistributedMiner``'s counters, a table committed below); then gloo
+   worlds of 2 and 4 ranks sharing the card (``launch.forcedevices``):
+   (1,2), (2,1), (2,2), (4,1) at kosarak @ 1.0 (phase 4's itemsets; (1,2)
+   with (1,1)'s counters) and @ 0.1 (the JAX table), declat and adaptive
+   on accidents-paper @ 1.0 on (2,1) (phase 5's itemsets); each rank
+   must launch its scan kernel, and each mesh's wall and device busy are
+   printed (one-card gloo numbers: collectives staged through the host);
+11. last, the checked build runs phase 1's ES and N-list sweeps again
+   (a failed device assert traps and fails the run), then the N-list
+   sweeps with the merge's adv mask in its packed form, whose reading is
+   printed.
 
 Every path runs with every kernel's launch count set to 0 just before
 and read just after; a path that launched one of its kernels no time
@@ -71,9 +90,11 @@ from __future__ import annotations
 import argparse
 import gzip
 import json
+import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -127,6 +148,7 @@ def _max_err(a, b) -> int:
 
 def phase_kernels(dev, rng) -> dict:
     import torch
+    from repro_torch.core.bitmap import suffix_popcounts
     from repro_torch.kernels import compact as kcompact
     from repro_torch.kernels import ops, ref
 
@@ -146,75 +168,8 @@ def phase_kernels(dev, rng) -> dict:
         need(e == 0, f"{name} disagrees with its plain version: {what} "
                      f"(max abs err {e})")
 
-    from repro_torch.core.bitmap import suffix_popcounts
-    # Standalone scan: both modes, ES on/off, minsup <= 0, bw 1/8/128.
-    for bw, nb, P, density in ((1, 9, 33, 1), (8, 7, 33, 1), (128, 3, 33, 1),
-                               (128, 242, 64, 3)):
-        U, V = rows(P, nb, bw, density), rows(P, nb, bw, density)
-        su, sv = suffix_popcounts(U), suffix_popcounts(V)
-        rho = su[:, 0].contiguous()
-        nt = nb * bw * 32
-        for mode in ("and", "andnot"):
-            for minsup in (-(2 ** 31), -4, 0, 1, nt // 64, nt // 16,
-                           nt // 8, nt):
-                got = ops.bitmap_intersect_es(U, V, su, sv, rho, minsup,
-                                              mode=mode)
-                want = ops.bitmap_intersect_es(U, V, su, sv, rho, minsup,
-                                               mode=mode, backend="plain")
-                agree("bitmap_intersect_es", got, want,
-                      f"scan bw={bw} nb={nb} mode={mode} minsup={minsup}")
-        got = (ops.bitmap_count(U, V),
-               *ops.bitmap_intersect_full(U, V, mode="andnot"),
-               *ops.screen_pairs(U[:, 0].contiguous(), V[:, 0].contiguous(),
-                                 su[:, 1], sv[:, 1], rho, nt // 64))
-        want = (ops.bitmap_count(U, V, backend="plain"),
-                *ops.bitmap_intersect_full(U, V, mode="andnot",
-                                           backend="plain"),
-                *ops.screen_pairs(U[:, 0], V[:, 0], su[:, 1], sv[:, 1], rho,
-                                  nt // 64, backend="plain"))
-        agree("bitmap_intersect_es", got, want,
-              f"count/full/screen bw={bw} nb={nb}")
-
-    # Fused dispatch: survivors written, everything else untouched.
-    for bw, nb, cap, density in ((8, 7, 64, 1), (128, 3, 64, 1),
-                                 (128, 242, 48, 3)):
-        slab0 = rows(cap, nb, bw, density)
-        suf0 = suffix_popcounts(slab0)
-        P = 20
-        ua = torch.from_numpy(rng.integers(0, 16, P).astype(np.int32)).to(dev)
-        vb = torch.from_numpy(rng.integers(0, 16, P).astype(np.int32)).to(dev)
-        slots_np = np.arange(16, 16 + P, dtype=np.int32)
-        slots_np[-1] = cap + 3              # pad slot
-        slots_np[-2] = -1                   # negative slot
-        slots = torch.from_numpy(slots_np).to(dev)
-        rho = suf0[ua.long(), 0].contiguous()
-        nt = nb * bw * 32
-        for mode in ("and", "andnot"):
-            for es in (True, False):
-                for minsup in (0, 1, nt // 64, nt // 16, nt // 8):
-                    rk, sk = slab0.clone(), suf0.clone()
-                    rp, sp = slab0.clone(), suf0.clone()
-                    got = ops.screen_and_intersect(
-                        rk, sk, ua, vb, slots, rho, minsup, mode=mode,
-                        early_stop=es)
-                    want = ops.screen_and_intersect(
-                        rp, sp, ua, vb, slots, rho, minsup, mode=mode,
-                        early_stop=es, backend="plain")
-                    what = (f"fused bw={bw} nb={nb} mode={mode} es={es} "
-                            f"minsup={minsup}")
-                    agree("bitmap_intersect_es", got, want, what)
-                    cnt, alive = got[2], got[4]
-                    sup = cnt if mode == "and" else rho - cnt
-                    keep = (alive & (sup >= minsup)).cpu().numpy()
-                    for i in np.flatnonzero(~keep):
-                        s = int(slots_np[i])
-                        if 0 <= s < cap:
-                            need(torch.equal(rk[s], slab0[s])
-                                 and torch.equal(sk[s], suf0[s]),
-                                 f"{what}: non-survivor slot {s} written")
-                    need(torch.equal(rk[16 + P:], slab0[16 + P:])
-                         and torch.equal(rk[:16], slab0[:16]),
-                         f"{what}: rows outside the child slots written")
+    _check_scan(dev, rows, rng, agree)
+    _check_thr(dev, agree)
 
     # Compaction: rows, suffix tables and codes; -1 and >= cap entries.
     cap = 40
@@ -364,6 +319,180 @@ def _check_bag(dev, rng, close) -> None:
     one(table, torch.from_numpy(b["hist_ids"]).to(dev),
         torch.from_numpy(b["hist_mask"]).to(dev), "mean",
         f"table {V} x {D}, 512 Zipf bags of 50")
+
+
+def _check_scan(dev, rows, rng, agree) -> None:
+    """bitmap_intersect_es against its plain version: the standalone scan
+    (both modes, ES on/off, minsup <= 0, bw 1/8/128 up to 242 blocks) and
+    the fused dispatch, whose non-survivor and out-of-range slots stay
+    untouched."""
+    import torch
+    from repro_torch.core.bitmap import suffix_popcounts
+    from repro_torch.kernels import ops
+
+    # Standalone scan: both modes, ES on/off, minsup <= 0, bw 1/8/128.
+    for bw, nb, P, density in ((1, 9, 33, 1), (8, 7, 33, 1), (128, 3, 33, 1),
+                               (128, 242, 64, 3)):
+        U, V = rows(P, nb, bw, density), rows(P, nb, bw, density)
+        su, sv = suffix_popcounts(U), suffix_popcounts(V)
+        rho = su[:, 0].contiguous()
+        nt = nb * bw * 32
+        for mode in ("and", "andnot"):
+            for minsup in (-(2 ** 31), -4, 0, 1, nt // 64, nt // 16,
+                           nt // 8, nt):
+                got = ops.bitmap_intersect_es(U, V, su, sv, rho, minsup,
+                                              mode=mode)
+                want = ops.bitmap_intersect_es(U, V, su, sv, rho, minsup,
+                                               mode=mode, backend="plain")
+                agree("bitmap_intersect_es", got, want,
+                      f"scan bw={bw} nb={nb} mode={mode} minsup={minsup}")
+        got = (ops.bitmap_count(U, V),
+               *ops.bitmap_intersect_full(U, V, mode="andnot"),
+               *ops.screen_pairs(U[:, 0].contiguous(), V[:, 0].contiguous(),
+                                 su[:, 1], sv[:, 1], rho, nt // 64))
+        want = (ops.bitmap_count(U, V, backend="plain"),
+                *ops.bitmap_intersect_full(U, V, mode="andnot",
+                                           backend="plain"),
+                *ops.screen_pairs(U[:, 0], V[:, 0], su[:, 1], sv[:, 1], rho,
+                                  nt // 64, backend="plain"))
+        agree("bitmap_intersect_es", got, want,
+              f"count/full/screen bw={bw} nb={nb}")
+
+    # Fused dispatch: survivors written, everything else untouched.
+    for bw, nb, cap, density in ((8, 7, 64, 1), (128, 3, 64, 1),
+                                 (128, 242, 48, 3)):
+        slab0 = rows(cap, nb, bw, density)
+        suf0 = suffix_popcounts(slab0)
+        P = 20
+        ua = torch.from_numpy(rng.integers(0, 16, P).astype(np.int32)).to(dev)
+        vb = torch.from_numpy(rng.integers(0, 16, P).astype(np.int32)).to(dev)
+        slots_np = np.arange(16, 16 + P, dtype=np.int32)
+        slots_np[-1] = cap + 3              # pad slot
+        slots_np[-2] = -1                   # negative slot
+        slots = torch.from_numpy(slots_np).to(dev)
+        rho = suf0[ua.long(), 0].contiguous()
+        nt = nb * bw * 32
+        for mode in ("and", "andnot"):
+            for es in (True, False):
+                for minsup in (0, 1, nt // 64, nt // 16, nt // 8):
+                    rk, sk = slab0.clone(), suf0.clone()
+                    rp, sp = slab0.clone(), suf0.clone()
+                    got = ops.screen_and_intersect(
+                        rk, sk, ua, vb, slots, rho, minsup, mode=mode,
+                        early_stop=es)
+                    want = ops.screen_and_intersect(
+                        rp, sp, ua, vb, slots, rho, minsup, mode=mode,
+                        early_stop=es, backend="plain")
+                    what = (f"fused bw={bw} nb={nb} mode={mode} es={es} "
+                            f"minsup={minsup}")
+                    agree("bitmap_intersect_es", got, want, what)
+                    cnt, alive = got[2], got[4]
+                    sup = cnt if mode == "and" else rho - cnt
+                    keep = (alive & (sup >= minsup)).cpu().numpy()
+                    for i in np.flatnonzero(~keep):
+                        s = int(slots_np[i])
+                        if 0 <= s < cap:
+                            need(torch.equal(rk[s], slab0[s])
+                                 and torch.equal(sk[s], suf0[s]),
+                                 f"{what}: non-survivor slot {s} written")
+                    need(torch.equal(rk[16 + P:], slab0[16 + P:])
+                         and torch.equal(rk[:16], slab0[:16]),
+                         f"{what}: rows outside the child slots written")
+
+
+INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def _plain_fused_thr(rows, suffix, ua, vb, slots, rho, gate, thr, *, diff,
+                     mode="and"):
+    """The fused dispatch with a per-pair threshold, in plain PyTorch:
+    gather, ``ref._blocked_es_scan`` / ``_blocked_diff_scan`` against
+    ``thr``, and the survivors' scatter gated on ``gate``."""
+    from repro_torch.kernels import ref
+    U, V = rows.index_select(0, ua), rows.index_select(0, vb)
+    su = suffix.index_select(0, ua)
+    if diff:
+        Z, cnt, blocks, alive = ref._blocked_diff_scan(U, V, su, rho, thr)
+    else:
+        Z, cnt, blocks, alive = ref._blocked_es_scan(
+            U, V, su, suffix.index_select(0, vb), rho, thr, mode=mode)
+    keep = ref._survivor_mask(cnt, alive, rho, gate,
+                              mode="andnot" if diff else mode)
+    ref._scatter_children(rows, suffix, Z, keep, slots)
+    return cnt, blocks, alive
+
+
+def _check_thr(dev, agree) -> None:
+    """The ES scan and the dEclat difference with a per-pair threshold
+    (the sharded miner's ``minsup - slack``) against their plain versions,
+    bit for bit: both scan modes and the difference, bw 128, 8 and 1,
+    thresholds random, <= 0, INT32_MIN and above every bound; standalone,
+    and fused with survivors written (and with the sharded dispatch's
+    second-pass form: INT32_MIN / INT32_MAX per pair, gate INT32_MIN)."""
+    import torch
+    from repro_torch.core.bitmap import suffix_popcounts
+    from repro_torch.kernels import bitmap_diff as kbd
+    from repro_torch.kernels import bitmap_intersect as kbi
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(20261017)
+
+    def rows(n, nb, bw):
+        u = rng.integers(0, 2 ** 32, (n, nb, bw), dtype=np.uint64)
+        for _ in range(3):
+            u &= rng.integers(0, 2 ** 32, (n, nb, bw), dtype=np.uint64)
+        u[::3, nb // 2] = 0                  # zero-mass blocks
+        return torch.from_numpy(u.astype(np.uint32).view(np.int32)).to(dev)
+
+    for bw, nb, P in ((128, 242, 64), (128, 5, 40), (8, 33, 48),
+                      (1, 300, 48)):
+        U, V = rows(P, nb, bw), rows(P, nb, bw)
+        su, sv = suffix_popcounts(U), suffix_popcounts(V)
+        rho = su[:, 0].contiguous()
+        nt = nb * bw * 32
+        thr_np = rng.integers(-nt // 64, nt // 64, P).astype(np.int32)
+        thr_np[:6] = (INT32_MIN, -1, 0, nt + 1, INT32_MAX, INT32_MIN + 1)
+        thr = torch.from_numpy(thr_np).to(dev)
+        what = f"per-pair thr bw={bw} nb={nb}"
+        for mode in ("and", "andnot"):
+            agree("bitmap_intersect_es",
+                  ops.bitmap_intersect_es(U, V, su, sv, rho, 0, mode=mode,
+                                          thr=thr),
+                  ops.bitmap_intersect_es(U, V, su, sv, rho, 0, mode=mode,
+                                          thr=thr, backend="plain"),
+                  f"{what} scan mode={mode}")
+        agree("bitmap_diff_es",
+              ops.bitmap_diff_es(U, V, su, rho, 0, thr=thr),
+              ops.bitmap_diff_es(U, V, su, rho, 0, thr=thr, backend="plain"),
+              f"{what} diff")
+
+        cap, n = 2 * P, P // 2
+        slab = torch.cat([U, torch.zeros_like(U)])
+        suf = torch.cat([su, torch.zeros_like(su)])
+        ua = torch.from_numpy(rng.integers(0, P, n).astype(np.int32)).to(dev)
+        vb = torch.from_numpy(rng.integers(0, P, n).astype(np.int32)).to(dev)
+        slots_np = np.arange(P, P + n, dtype=np.int32)
+        slots_np[-1], slots_np[-2] = cap, -1
+        slots = torch.from_numpy(slots_np).to(dev)
+        rho_f = suf[ua.long(), 0].contiguous()
+        t = thr[:n].contiguous()
+        two = torch.from_numpy(np.where(rng.random(n) < 0.5, INT32_MIN,
+                                        INT32_MAX).astype(np.int32)).to(dev)
+        for diff in (False, True):
+            for gate, tt in ((nt // 256, t), (INT32_MIN, two)):
+                rk, sk = slab.clone(), suf.clone()
+                rp, sp = slab.clone(), suf.clone()
+                if diff:
+                    got = kbd.screen_and_diff(rk, sk, ua, vb, slots, rho_f,
+                                              gate, 0, thr=tt)
+                else:
+                    got = kbi.screen_and_intersect(rk, sk, ua, vb, slots,
+                                                   rho_f, gate, 0, thr=tt)
+                want = _plain_fused_thr(rp, sp, ua, vb, slots, rho_f, gate,
+                                        tt, diff=diff)
+                agree("bitmap_diff_es" if diff else "bitmap_intersect_es",
+                      (*got, rk, sk), (*want, rp, sp),
+                      f"{what} fused diff={diff} gate={gate}")
 
 
 def _check_diff(dev, rows, agree) -> None:
@@ -891,7 +1020,7 @@ def phase_declat(dev, counters) -> dict:
             f"plain path — F={len(out_c)} word_ops {st_c.word_ops} wall "
             f"card {wall_c:.3f} s cpu {wall_p:.3f} s")
     return {"bdb": bdb, "minsup": ms, "launches": launches,
-            "report": report}
+            "itemsets": ref_out, "report": report}
 
 
 def _kosarak_transactions():
@@ -1180,6 +1309,280 @@ def phase_retrieval(dev, counters, seed) -> dict:
                               "launches": launches99, "err": u_err}}}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the sharded miner (DistributedMiner over a (block, cls) mesh)
+# ---------------------------------------------------------------------------
+
+# The JAX DistributedMiner's counters on kosarak-paper @ 0.1 (99,000
+# transactions, minsup 248), eclat, ES on, inflight=2, autotune_chunk=True,
+# pair_chunk=65536, per mesh shape (block x cls), on forced host devices:
+#   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/jax_distributed_counters.py \
+#       --dataset kosarak-paper --scale 0.1 --meshes 1x1,2x1,1x2,2x2,4x1
+_JAX_COMMON_01 = dict(
+    candidates=5642, child_scatters=1367, compaction_occupancy=0.125,
+    compactions=5, device_calls=5, device_occupancy=0.0,
+    frequent_itemsets=1457, inflight_groups=2, nodes=1457, peak_rows=4095,
+    ratio=3.8723, scatter_words=4374400, store_grows=0,
+    word_ops_full=18054400)
+_JAX_ES_11 = dict(deaths=4275, kernel_aborts=4086, screened_out=189,
+                  word_ops=10584832, word_ops_saved_frac=0.4137)
+_JAX_ES_21 = dict(deaths=2663, kernel_aborts=2423, screened_out=240,
+                  word_ops=14402560, word_ops_saved_frac=0.2023)
+JAX_DISTRIBUTED_01 = {
+    (1, 1): dict(_JAX_COMMON_01, **_JAX_ES_11),
+    (1, 2): dict(_JAX_COMMON_01, **_JAX_ES_11),
+    (2, 1): dict(_JAX_COMMON_01, **_JAX_ES_21),
+    (2, 2): dict(_JAX_COMMON_01, **_JAX_ES_21),
+    (4, 1): dict(_JAX_COMMON_01, deaths=1609, kernel_aborts=773,
+                 screened_out=836, word_ops=16556288,
+                 word_ops_saved_frac=0.083)}
+
+# The knobs of the main path's miner (_miner), for every mesh.
+SHARDED_KNOBS = dict(inflight=2, autotune_chunk=True, pair_chunk=65536)
+RANK_TIMEOUT_S = 400.0
+
+
+def _mine_counted(mesh, bdb, ms, dev, *, scheme="eclat", es=True):
+    """One DistributedMiner run on ``mesh`` with every kernel's launch
+    count zeroed just before and read just after (the card synchronised
+    on both sides).  Returns ``(itemsets, counters, wall_s, launches)``."""
+    from repro_torch.core.distributed import DistributedMiner
+    counters = _kernel_counters()
+
+    def run():
+        return DistributedMiner(mesh, scheme=scheme, early_stop=es,
+                                device=dev, **SHARDED_KNOBS).mine_packed(
+                                    bdb, ms)
+    (out, st), wall, ln = _launches(counters, run)
+    return out, _non_time(st.as_dict()), wall, ln, run
+
+
+def _warm_wall(run) -> float:
+    """The host wall of one more run (s), the card synchronised on both
+    sides: the first run of a mesh also pays the communicators' set-up."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _busy(run, where: Path) -> dict:
+    """One more run under torch.profiler: wall, device busy (this
+    process's own device work) and idle share (the trace is read and
+    removed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    where.mkdir(parents=True, exist_ok=True)
+    path = where / f"trace_{os.getpid()}.json"
+    prof.export_chrome_trace(str(path))
+    busy_ms, spans, _ = _trace_busy(path)
+    path.unlink()
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": (1 - busy_ms / wall_ms) if spans else None}
+
+
+def _sharded_rank(rank, world, jobs, trace_dir, device):
+    """One gloo rank on ``device`` (cuda:0, shared by every rank): for
+    each job ``(shape, name, bdb, minsup, scheme, profile)`` a
+    DistributedMiner run (ES on) on a ``shape`` mesh of this world.
+    Returns per job its itemsets, counters, wall, launches and (where
+    asked) device busy."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mining_mesh
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        _build.load()              # built by the parent: loaded from disk
+    meshes, out = {}, []
+    for shape, name, bdb, ms, scheme, prof in jobs:
+        if shape not in meshes:
+            meshes[shape] = make_mining_mesh(block=shape[0], cls=shape[1])
+        got, cnt, wall, ln, run = _mine_counted(meshes[shape], bdb, ms, dev,
+                                                scheme=scheme)
+        kernel = "bitmap_diff_es" if scheme == "declat" else \
+            "bitmap_intersect_es"
+        need(ln[kernel] > 0, f"rank {rank} {name} {shape}: {kernel} "
+                             f"launched no time")
+        warm = _warm_wall(run) if prof else None
+        busy = _busy(run, Path(trace_dir)) if prof else None
+        out.append({"itemsets": got, "counters": cnt, "wall_s": wall,
+                    "warm_wall_s": warm, "launches": ln, "busy": busy})
+    return out
+
+
+def _kernel_counters():
+    from repro_torch.kernels.bitmap_diff import bitmap_diff_es
+    from repro_torch.kernels.bitmap_intersect import bitmap_intersect_es
+    from repro_torch.kernels.compact import compact_gather
+    return (bitmap_intersect_es, compact_gather, bitmap_diff_es)
+
+
+def phase_sharded(dev, main, declat, smi_line) -> dict:
+    """The sharded miner on the card: mesh (1,1) under NCCL in this
+    process at kosarak-paper @ 1.0 (ES on and off, equal to phase 4's
+    itemsets and counters) and @ 0.1 (equal to the JAX table); then gloo
+    worlds of 2 and 4 ranks sharing the card: (1,2), (2,1), (2,2), (4,1)
+    at kosarak @ 1.0 (itemsets equal to phase 4's, (1,2)'s counters equal
+    to (1,1)'s) and @ 0.1 (the JAX table), and declat/adaptive on
+    accidents-paper @ 1.0 on (2,1) (itemsets equal to phase 5's)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.transactions import stream_paper_dataset
+    from repro_torch.launch.forcedevices import free_port, run_ranks
+    from repro_torch.launch.mesh import make_mining_mesh
+
+    bdb, ms = main["bdb"], main["minsup"]
+    bdb01, ms01 = stream_paper_dataset("kosarak-paper", scale=0.1, seed=0)
+    ms01 = ms01[0]
+    acc, acc_ms = declat["bdb"], declat["minsup"]
+    want_full = _non_time(main["report"]["full"])
+    want_es = _non_time(main["report"]["es"])
+    for d in (want_full, want_es):
+        d.pop("frequent_itemsets", None)
+    report, launches = {}, {}
+
+    def check_01(shape, got, cnt):
+        want = JAX_DISTRIBUTED_01[shape]
+        bad = {k: (cnt.get(k, len(got)), v) for k, v in want.items()
+               if (len(got) if k == "frequent_itemsets" else cnt.get(k)) != v}
+        need(not bad, f"sharded {shape} kosarak@0.1: counters differ from "
+                      f"the JAX DistributedMiner's (card, JAX): {bad}")
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as trace_dir:
+        # -- (1,1) under NCCL, in this process.
+        dist.init_process_group("nccl", init_method="tcp://localhost:"
+                                f"{free_port()}", world_size=1, rank=0)
+        try:
+            mesh = make_mining_mesh(block=1, cls=1)
+            got, cnt, wall, ln, run = _mine_counted(mesh, bdb, ms, dev)
+            need(got == main["itemsets"], "sharded (1,1) kosarak@1.0: "
+                                          "itemsets differ from phase 4's")
+            need(cnt == want_es, "sharded (1,1) kosarak@1.0 ES on: counters "
+                                 "differ from phase 4's BitmapMiner: "
+                 f"{ {k: (cnt[k], want_es[k]) for k in cnt if cnt[k] != want_es.get(k)} }")
+            for name in ("bitmap_intersect_es", "compact_gather"):
+                need(ln[name] > 0, f"sharded (1,1): {name} launched no time")
+            launches = dict(ln)
+            warm = _warm_wall(run)
+            busy = _busy(run, Path(trace_dir))
+            got_no, cnt_no, wall_no, _, _ = _mine_counted(mesh, bdb, ms, dev,
+                                                          es=False)
+            need(got_no == got and cnt_no == want_full,
+                 "sharded (1,1) kosarak@1.0 ES off: itemsets or counters "
+                 "differ from phase 4's")
+            got01, cnt01, _, _, _ = _mine_counted(mesh, bdb01, ms01, dev)
+            check_01((1, 1), got01, cnt01)
+            report["1x1"] = {"backend": "nccl", "wall_first_s": wall,
+                             "wall_s": warm, "wall_es_off_s": wall_no,
+                             "busy": busy, "launches": ln, **cnt}
+            say(f"phase sharded (1,1) nccl: kosarak@1.0 F={len(got)} "
+                f"word_ops {cnt['word_ops']} calls {cnt['device_calls']} "
+                f"== phase 4 (ES on and off); @0.1 == JAX table; wall "
+                f"{warm:.4f} s (first run {wall:.3f} s, ES off "
+                f"{wall_no:.4f} s); profiled wall {busy['wall_ms']:.3f} ms, "
+                f"device busy {busy['device_busy_ms']:.3f} ms, idle share "
+                f"{busy['idle_share']}; launches {ln}")
+        finally:
+            dist.destroy_process_group()
+
+        # -- gloo worlds sharing the card.
+        worlds = {
+            2: [((1, 2), "kosarak@1.0", bdb, ms, "eclat", True),
+                ((2, 1), "kosarak@1.0", bdb, ms, "eclat", True),
+                ((1, 2), "kosarak@0.1", bdb01, ms01, "eclat", False),
+                ((2, 1), "kosarak@0.1", bdb01, ms01, "eclat", False),
+                ((2, 1), "accidents@1.0", acc, acc_ms, "declat", True),
+                ((2, 1), "accidents@1.0", acc, acc_ms, "adaptive", False)],
+            4: [((2, 2), "kosarak@1.0", bdb, ms, "eclat", True),
+                ((4, 1), "kosarak@1.0", bdb, ms, "eclat", True),
+                ((2, 2), "kosarak@0.1", bdb01, ms01, "eclat", False),
+                ((4, 1), "kosarak@0.1", bdb01, ms01, "eclat", False)]}
+        for world, jobs in worlds.items():
+            t0 = time.perf_counter()
+            per_rank = run_ranks(_sharded_rank, world,
+                                 (jobs, trace_dir, str(dev)),
+                                 timeout_s=RANK_TIMEOUT_S, threads=0)
+            say(f"phase sharded: gloo world of {world} on one card ran in "
+                f"{time.perf_counter() - t0:.1f} s")
+            for j, (shape, name, _, _, scheme, _) in enumerate(jobs):
+                res = [r[j] for r in per_rank]
+                got, cnt = res[0]["itemsets"], res[0]["counters"]
+                for r in res[1:]:
+                    need(r["itemsets"] == got and r["counters"] == cnt,
+                         f"sharded {shape} {name} {scheme}: ranks disagree")
+                key = f"{shape[0]}x{shape[1]} {name} {scheme}"
+                if name == "kosarak@1.0":
+                    need(got == main["itemsets"], f"sharded {key}: itemsets "
+                                                  f"differ from phase 4's")
+                    if shape == (1, 2):
+                        need(cnt == want_es, f"sharded {key}: counters "
+                                             f"differ from (1,1)'s")
+                elif name == "kosarak@0.1":
+                    check_01(shape, got, cnt)
+                else:
+                    need(got == declat["itemsets"], f"sharded {key}: "
+                         f"itemsets differ from phase 5's")
+                if scheme == "declat":
+                    launches["bitmap_diff_es"] = res[0]["launches"][
+                        "bitmap_diff_es"]
+                first = max(r["wall_s"] for r in res)
+                warm = (None if res[0]["warm_wall_s"] is None
+                        else max(r["warm_wall_s"] for r in res))
+                busy = res[0]["busy"]
+                report[key] = {"backend": "gloo", "ranks": world,
+                               "wall_first_s": first, "wall_s": warm,
+                               "busy_rank0": busy,
+                               "launches": [r["launches"] for r in res],
+                               **cnt}
+                say(f"phase sharded {key} gloo: F={len(got)} word_ops "
+                    f"{cnt['word_ops']} screened {cnt['screened_out']} "
+                    f"aborts {cnt['kernel_aborts']} calls "
+                    f"{cnt['device_calls']}; first run {first:.3f} s (max "
+                    f"over ranks)"
+                    + ("" if busy is None else
+                       f"; wall {warm:.4f} s (max over ranks); rank 0 "
+                       f"profiled wall {busy['wall_ms']:.3f} ms, its device "
+                       f"busy {busy['device_busy_ms']:.3f} ms, idle share "
+                       f"{busy['idle_share']}")
+                    + f"; launches {[r['launches'] for r in res]}")
+    say(f"phase sharded: {smi_line}; one-card gloo numbers stage every "
+        f"collective through the host and are no speed across cards")
+    return {"launches": launches, "report": report}
+
+
+def _trace_busy(path: Path):
+    """Device busy ms of an exported profiler trace (the union of its
+    kernel, memcpy and memset intervals), its device spans, and device
+    (count, ms) by name."""
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    spans, by_name = [], {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+            key = f"{e['cat']}:{str(e.get('name', ''))[:60]}"
+            n, t = by_name.get(key, (0, 0.0))
+            by_name[key] = (n + 1, t + float(e["dur"]) / 1e3)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return busy_us / 1e3, spans, by_name
+
+
 def profile_path(name: str, run, trace_dir: Path) -> dict:
     """One more run of a path under ``torch.profiler`` (``--profile DIR``):
     device busy time (the union of kernel, memcpy and memset intervals in
@@ -1199,21 +1602,7 @@ def profile_path(name: str, run, trace_dir: Path) -> dict:
     trace_dir.mkdir(parents=True, exist_ok=True)
     path = trace_dir / f"{name}_trace.json"
     prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text()).get("traceEvents", [])
-    spans, by_name = [], {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
-                                                   "gpu_memset"):
-            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-            key = f"{e['cat']}:{str(e.get('name', ''))[:60]}"
-            n, t = by_name.get(key, (0, 0.0))
-            by_name[key] = (n + 1, t + float(e["dur"]) / 1e3)
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi in sorted(spans):
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    busy_ms = busy_us / 1e3
+    busy_ms, spans, by_name = _trace_busy(path)
     with open(path, "rb") as raw, gzip.open(f"{path}.gz", "wb") as gz:
         shutil.copyfileobj(raw, gz)                # traces run to ~100 MB
     path.unlink()
@@ -1431,6 +1820,8 @@ def phase_timing(dev, main) -> dict:
     time_ms = _timer(dev)
     out = _es_widths(dev, time_ms, "bitmap_intersect_es", main["bdb"],
                      main["minsup"], diff=False, dataset="kosarak-paper")
+    out["bitmap_intersect_es_thr"] = _thr_scan(dev, time_ms, main["bdb"],
+                                               main["minsup"])
 
     # The main path's largest compaction.
     rows_shape, suf_shape, perm_np = max(
@@ -1474,6 +1865,122 @@ def phase_timing(dev, main) -> dict:
             "max_abs_err": 0,
             "rows_in": cap, "rows_out": int(perm_np.size),
             "live": n_valid, "bytes": comp_bytes}}
+
+
+def _thr_scan(dev, time_ms, bdb, ms) -> dict:
+    """The sharded dispatch's first scan at the (1,1) shape: every
+    level-1 pair, the per-pair threshold ``minsup - 0`` (one block shard,
+    no slack), every slot at capacity (no child: the sharded dispatch
+    writes survivors in its second launch).  Held against its plain
+    version, then timed beside its bound and the plain version."""
+    import torch
+    from repro_torch.core.rowstore import DeviceRowStore
+    from repro_torch.kernels import bitmap_intersect as kbi
+    from repro_torch.kernels import ops
+
+    nb, bw = bdb.n_blocks, bdb.block_words
+    store = DeviceRowStore(bdb.bitmaps, capacity=bdb.n_items + 4096,
+                           device=dev)
+    ia, ib = np.triu_indices(bdb.n_items, 1)
+    P = int(ia.size)
+    _, (ua, vb, nowhere, rho) = ops.upload_columns(dev, [
+        ia.astype(np.int32), ib.astype(np.int32),
+        np.full(P, store.capacity, np.int32),
+        bdb.supports[ia].astype(np.int32)])
+    thr = torch.full((P,), ms, dtype=torch.int32, device=dev)
+
+    def run():
+        return kbi.screen_and_intersect(store.rows, store.suffix, ua, vb,
+                                        nowhere, rho, ms, 0, thr=thr)
+
+    def plain():
+        return _plain_fused_thr(store.rows, store.suffix, ua, vb, nowhere,
+                                rho, ms, thr, diff=False)
+    got, want = run(), plain()
+    err = max(_max_err(g, w) for g, w in zip(got, want, strict=True))
+    need(err == 0, f"per-pair-threshold scan at {P} pairs x {nb} blocks "
+                   f"disagrees with its plain version (max abs err {err})")
+    blocks_np = got[1].cpu().numpy().astype(np.int64)
+    row_blocks = np.zeros(store.capacity, np.int64)
+    np.maximum.at(row_blocks, ia, blocks_np)
+    np.maximum.at(row_blocks, ib, blocks_np)
+    nbytes = (int(row_blocks.sum()) * (bw + 1) * 4     # row + suffix words
+              + P * 5 * 4 + P * 9)                    # columns, thr, outputs
+    blocks_sum = int(blocks_np.sum())
+    n_ops = 3 * blocks_sum * bw
+    bound, by = _bound(nbytes, n_ops)
+    ms_k = time_ms(run, 20)
+    ms_p = time_ms(plain, 3)
+    say(f"timing bitmap_intersect_es with a per-pair threshold (the (1,1) "
+        f"sharded first scan, {P} pairs x {nb} blocks x {bw} words, "
+        f"blocks_done {blocks_sum}, equal to plain): kernel {ms_k:.4f} ms, "
+        f"plain {ms_p:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes} B, "
+        f"{n_ops} ops)")
+    return {"ms": ms_k, "plain_ms": ms_p, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "max_abs_err": err, "pairs": P,
+            "blocks_done": blocks_sum, "bytes": nbytes, "ops": n_ops}
+
+
+def phase_checked(dev) -> dict:
+    """The checked build (``_build.checked()``: device asserts on every
+    global index and window bound of the ES scan, the dEclat difference
+    and the N-list kernels) runs phase 1's ES and N-list sweeps once,
+    bit for bit against the plain versions; then the N-list sweeps once
+    more with the merge's adv mask in the packed form ``desc || x.pre <=
+    y.pre`` (the same predicate as the committed one), whose reading is
+    printed.  A failed assert traps its launch and fails the run."""
+    import torch
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(20261016)
+
+    def rows(n, nb, bw, density):
+        u = rng.integers(0, 2 ** 32, (n, nb, bw), dtype=np.uint64)
+        for _ in range(density):
+            u &= rng.integers(0, 2 ** 32, (n, nb, bw), dtype=np.uint64)
+        return torch.from_numpy(u.astype(np.uint32).view(np.int32)).to(dev)
+
+    checks, packed = {}, {"checks": 0, "max_abs_err": 0, "failures": []}
+
+    def agree(name, got, want, what):
+        e = max(_max_err(g, w) for g, w in zip(got, want, strict=True))
+        checks[name] = checks.get(name, 0) + 1
+        need(e == 0, f"checked build: {name} disagrees with its plain "
+                     f"version: {what} (max abs err {e})")
+
+    def record(name, got, want, what):
+        e = max(_max_err(g, w) for g, w in zip(got, want, strict=True))
+        packed["checks"] += 1
+        packed["max_abs_err"] = max(packed["max_abs_err"], e)
+        if e:
+            packed["failures"].append(f"{name}: {what} (max abs err {e})")
+
+    t0 = time.perf_counter()
+    with _build.checked() as lib:
+        _check_scan(dev, rows, rng, agree)
+        _check_thr(dev, agree)
+        _check_diff(dev, rows, agree)
+        _check_nlists(dev, rng, agree)
+        _check_nlist_intersect(dev, rng, agree)
+        torch.cuda.synchronize()
+        say(f"phase checked: no device assert fired, every output equal to "
+            f"the plain versions — {checks} comparisons "
+            f"({time.perf_counter() - t0:.1f} s)")
+        lib.repro_nlist_set_packed_adv(1)
+        try:
+            _check_nlists(dev, rng, record)
+            _check_nlist_intersect(dev, rng, record)
+            torch.cuda.synchronize()
+        except SmokeFailure as e:      # the reading, not a kernel of the port
+            packed["failures"].append(str(e))
+        finally:
+            lib.repro_nlist_set_packed_adv(0)
+    say(f"phase checked: packed adv form (desc || x.pre <= y.pre) reading: "
+        f"{packed['checks']} comparisons with the plain version, max abs err "
+        f"{packed['max_abs_err']}, disagreements "
+        f"{packed['failures'] or 'none'}")
+    return {"checks": checks, "packed_adv": packed,
+            "build_s": _build.checked_build_seconds}
 
 
 def phase_timing_slice2(dev, declat, prepost) -> dict:
@@ -1772,10 +2279,25 @@ def main() -> int:
     from repro_torch.kernels.segment_embed import embedding_bag
     counters = (bitmap_intersect_es, compact_gather, bitmap_diff_es,
                 nlist_merge, zmerge_scatter, flash_attention, embedding_bag)
+    # Both builds before any rank is spawned: the checked library builds
+    # beside the plain one (one nvcc per source, all started together).
     t0 = time.perf_counter()
+    checked_build = {}
+
+    def build_checked():
+        try:
+            _build.load(checked=True)
+        except BaseException as e:                      # noqa: BLE001
+            checked_build["error"] = e
+    checked_thread = threading.Thread(target=build_checked)
+    checked_thread.start()
     _build.load()
+    checked_thread.join()
+    if "error" in checked_build:
+        raise checked_build["error"]
     say(f"build: kernels ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds:.2f} s)")
+        f"(nvcc {_build.build_seconds:.2f} s; checked build "
+        f"{_build.checked_build_seconds:.2f} s)")
 
     rng = np.random.default_rng(20261016)
     report = {"card": smi_line, "torch": torch.__version__,
@@ -1798,6 +2320,8 @@ def main() -> int:
     paths["serve"] = timed("serve", phase_serve, dev, counters, args.seed)
     paths["retrieval"] = timed("retrieval", phase_retrieval, dev, counters,
                                args.seed)
+    paths["sharded"] = timed("sharded", phase_sharded, dev, paths["main"],
+                             paths["declat"], smi_line)
     for name, res in paths.items():
         report[name] = res["report"]
     if args.profile:
@@ -1811,21 +2335,33 @@ def main() -> int:
     report["timing"].update(timed("timing_slice3", phase_timing_slice3, dev,
                                   paths["serve"], paths["retrieval"],
                                   args.seed))
+    # Last: a failed device assert leaves the context unusable.
+    report["checked"] = timed("checked", phase_checked, dev)
     torch.cuda.synchronize()
     report["phases_s"] = time.perf_counter() - t_start
     say(f"phases took {report['phases_s']:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
     kernels = []
+    sharded = paths["sharded"]["launches"]
+    thr = report["timing"]["bitmap_intersect_es_thr"]
     for name, source, replaces, path in KERNELS:
         t = report["timing"][name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": paths[path]["launches"][name],
             "max_abs_err": max(report["kernels"]["max_abs_err"][name],
                                t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"]}
+        if name in sharded:     # the sharded path's own run, counted apart
+            row["launches_sharded"] = sharded[name]
+        if name == "bitmap_intersect_es":
+            row["thr_ms"] = thr["ms"]
+            row["thr_plain_ms"] = thr["plain_ms"]
+            row["thr_bound_ms"] = thr["bound_ms"]
+            row["max_abs_err"] = max(row["max_abs_err"], thr["max_abs_err"])
+        kernels.append(row)
     report["kernel_line"] = kernels
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

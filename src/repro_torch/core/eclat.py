@@ -236,9 +236,7 @@ class BitmapMiner:
             out[frozenset((item,))] = int(bdb.supports[r])
             stats.nodes += 1
 
-        store = DeviceRowStore(
-            bdb.bitmaps, capacity=bdb.n_items + min(self.pair_chunk, 4096),
-            device=self.device)
+        store = self._make_store(bdb)
         self._minsup = minsup
         self._n_trans = bdb.n_trans
         supports = bdb.supports.astype(np.int32)
@@ -257,7 +255,7 @@ class BitmapMiner:
         # Every pair moves the same word mass, so the autotuned chunk
         # width is one run-wide value.
         self._chunk_width = (chunk_width_for(
-            bdb.n_blocks * self.block_words, self.pair_chunk,
+            self._autotune_words_per_pair(bdb), self.pair_chunk,
             PAIR_CHUNK_BUCKETS, BITMAP_REF_ROW_WORDS)
             if self.autotune_chunk else None)
         sched = FrontierScheduler(self, self.pair_chunk,
@@ -268,6 +266,17 @@ class BitmapMiner:
         stats.note_scheduler(sched)
         stats.runtime_s = time.perf_counter() - t0
         return out, stats
+
+    def _autotune_words_per_pair(self, bdb: BitmapDB) -> int:
+        """Word mass one pair moves on one device: the autotune budget's
+        numerator (the sharded miner divides it by its cls size)."""
+        return bdb.n_blocks * self.block_words
+
+    def _make_store(self, bdb: BitmapDB) -> DeviceRowStore:
+        """Allocate the slab (the sharded miner keeps its block shard)."""
+        return DeviceRowStore(
+            bdb.bitmaps, capacity=bdb.n_items + min(self.pair_chunk, 4096),
+            device=self.device)
 
     # -- representation policy ----------------------------------------------
 

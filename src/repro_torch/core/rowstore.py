@@ -1,6 +1,6 @@
-"""Device-resident allocators (port of ``repro.core.rowstore``, single
-device): the bitmap row store ``DeviceRowStore`` and the PrePost+ N-list
-pool ``NListPool`` (at the end of this module).
+"""Device-resident allocators (port of ``repro.core.rowstore``): the
+bitmap row store ``DeviceRowStore`` and the PrePost+ N-list pool
+``NListPool`` (at the end of this module).
 
 Every bitmap row the DFS can still touch lives in one preallocated slab
 ``int32[capacity, n_blocks, block_words]`` (uint32 bits, see
@@ -21,6 +21,14 @@ Growth doubles capacity to the next power of two (a device ``cat`` with
 zeros).  ``compact`` gathers the live rows to the front of a smaller slab
 in one dispatch per slab (``kernels.ops.compact_rows``) and returns the
 old->new slot mapping, which the frontier applies to every live handle.
+
+Sharded mode (``n_shards > 1``, the sharded miner's block shards): the
+block axis is padded to a multiple of ``n_shards`` (the pad at the tail
+shard), and the store holds only shard ``shard``'s blocks: ``rows``
+(capacity, local_blocks, block_words) and its local suffix tables
+``suffix`` (capacity, local_blocks + 1).  Every rank keeps the same host
+free list and compacts with the same ``perm``, so slot ids mean the same
+row on every rank; ``peak_device_words`` counts every shard's slab.
 """
 
 from __future__ import annotations
@@ -48,24 +56,37 @@ class DeviceRowStore:
 
     ``rows_np`` is the host ``uint32 (n, n_blocks, block_words)`` level-1
     bitmap; its rows take slots ``0..n-1``.  The suffix table is computed
-    on the host and uploaded with the rows."""
+    on the host and uploaded with the rows.  With ``n_shards > 1`` the
+    store holds block shard ``shard`` only (module docstring)."""
 
     def __init__(self, rows_np: np.ndarray, *, capacity: int = 0,
-                 device: torch.device = torch.device("cpu")):
-        n, nb, bw = rows_np.shape
+                 device: torch.device = torch.device("cpu"),
+                 n_shards: int = 1, shard: int = 0):
+        n, nb_real, bw = rows_np.shape
+        if not 0 <= shard < n_shards:
+            raise ValueError(f"shard {shard} of {n_shards}")
         cap = _round_capacity(max(capacity, n, 1))
         self.device = torch.device(device)
-        self.n_blocks = nb
+        self.n_shards = n_shards
+        self.shard = shard
+        nb = -(-nb_real // n_shards) * n_shards
+        nbl = nb // n_shards
+        self.n_blocks = nb                  # every shard's, pad included
+        self.local_blocks = nbl
         self.block_words = bw
-        bits = np.ascontiguousarray(rows_np, dtype=np.uint32).view(np.int32)
-        self.rows = torch.zeros((cap, nb, bw), dtype=torch.int32,
+        lo = shard * nbl
+        local = np.ascontiguousarray(rows_np[:, lo:lo + nbl], dtype=np.uint32)
+        if local.shape[1] < nbl:            # the tail shard's pad blocks
+            local = np.concatenate([local, np.zeros(
+                (n, nbl - local.shape[1], bw), np.uint32)], axis=1)
+        self.rows = torch.zeros((cap, nbl, bw), dtype=torch.int32,
                                 device=self.device)
-        self.suffix = torch.zeros((cap, nb + 1), dtype=torch.int32,
+        self.suffix = torch.zeros((cap, nbl + 1), dtype=torch.int32,
                                   device=self.device)
         if n:
-            self.rows[:n].copy_(torch.from_numpy(bits))
+            self.rows[:n].copy_(torch.from_numpy(local.view(np.int32)))
             self.suffix[:n].copy_(torch.from_numpy(
-                suffix_popcounts_np(rows_np)))
+                suffix_popcounts_np(local)))
         self._free: List[int] = list(range(cap - 1, n - 1, -1))
         self.grows = 0
         self.compactions = 0
@@ -79,14 +100,16 @@ class DeviceRowStore:
 
     @property
     def words_per_row(self) -> int:
-        """32-bit words one slab row pins on device (bitmap row + its
-        suffix-table row)."""
-        return self.n_blocks * self.block_words + int(self.suffix.shape[1])
+        """32-bit words one slab row pins on device over every shard
+        (bitmap row + its suffix-table rows)."""
+        return (self.n_blocks * self.block_words
+                + self.n_shards * (self.local_blocks + 1))
 
     @property
     def peak_device_words(self) -> int:
-        """High-water device footprint of the slab in 32-bit words
-        (compaction can shrink the live slab but not this peak)."""
+        """High-water device footprint of the slab in 32-bit words, summed
+        over every shard (compaction can shrink the live slab but not this
+        peak)."""
         return self.peak_capacity * self.words_per_row
 
     @property
@@ -112,7 +135,7 @@ class DeviceRowStore:
         old = self.capacity
         new = _round_capacity(max(2 * old, need))
         self.rows = torch.cat([self.rows, self.rows.new_zeros(
-            (new - old, self.n_blocks, self.block_words))])
+            (new - old, self.local_blocks, self.block_words))])
         self.suffix = torch.cat([self.suffix, self.suffix.new_zeros(
             (new - old, self.suffix.shape[1]))])
         self._free.extend(range(new - 1, old - 1, -1))

@@ -12,19 +12,21 @@
 // the stepped scan answers both.
 //
 // C interface (ctypes): every pointer and the stream are void*, counts
-// are int; returns cudaGetLastError() after the launch.
+// are int; returns cudaGetLastError() after the launch.  `thr` is the
+// optional per-pair threshold vector (null: es_minsup for every pair).
 
 #include "es_scan.cuh"
 
 extern "C" int repro_es_scan(const void* U, const void* V, const void* su,
                              const void* sv, const void* ua, const void* vb,
                              const void* rho, int n_pairs, int nb, int bw,
-                             int es_minsup, int andnot, void* Z, void* cnt,
+                             int es_minsup, const void* thr, int andnot,
+                             void* Z, void* cnt,
                              void* blocks, void* alive, void* child_rows,
                              void* child_suffix, const void* slots, int cap,
                              int gate_minsup, void* stream) {
   const repro::ScanArgs a = repro::make_scan_args(
-      U, V, su, sv, ua, vb, rho, n_pairs, nb, bw, es_minsup, andnot, Z, cnt, blocks,
+      U, V, su, sv, ua, vb, rho, n_pairs, nb, bw, es_minsup, thr, andnot, Z, cnt, blocks,
       alive, child_rows, child_suffix, slots, cap, gate_minsup);
   return repro::launch_scan<false>(a, static_cast<cudaStream_t>(stream));
 }

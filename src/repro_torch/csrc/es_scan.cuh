@@ -72,12 +72,31 @@
 //   is not counted in blocks_done (its Z words are still written as zeros
 //   where a Z output is asked for).  This requires su to be U's suffix
 //   table, which it always is on the mining path.
+//
+// The threshold.  A pair dies at the first block end whose bound is below
+// its threshold: es_minsup for every pair, or thr[p] where a per-pair
+// vector is given (the sharded miner's minsup - slack, kernels/ops.py).
+// Bounds are compared in 64 bits and never subtracted from a threshold,
+// so any int32 threshold is exact, INT32_MIN included; one at or below 0
+// never kills an "and" pair (its bound is a count plus suffix masses).
 
 #pragma once
 
+#include <cassert>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// REPRO_CHECK: a device-side assert in the checked build (-DREPRO_CHECKED,
+// kernels/_build.py), nothing otherwise.  It guards every global index
+// against its extent; a failure traps the launch (cudaErrorAssert).
+#ifndef REPRO_CHECK
+#ifdef REPRO_CHECKED
+#define REPRO_CHECK(cond) assert(cond)
+#else
+#define REPRO_CHECK(cond) ((void)0)
+#endif
+#endif
 
 namespace repro {
 
@@ -97,7 +116,8 @@ struct ScanArgs {
   const int32_t* vb;     // (P,) V row per pair, or null for row p
   const int32_t* rho;    // (P,) parent support ("andnot"/diff bound)
   int n_pairs, nb, bw;
-  int es_minsup;         // ES threshold; <= 0 disables early stopping
+  int es_minsup;         // ES threshold of every pair, where thr is null
+  const int32_t* thr;    // (P,) per-pair ES threshold, or null
   int andnot;            // kDiff = false only: 0: Z = U & V; 1: Z = U & ~V
   int32_t* Z;            // (P, nb, bw) output, or null
   int32_t* cnt;          // (P,)
@@ -174,6 +194,7 @@ __device__ __forceinline__ void load_masses(int (&m)[L], const PairView<VW>& pv,
   int r = e - k * pv.bvec;
 #pragma unroll
   for (int j = 0; j < L; ++j) {
+    REPRO_CHECK(e >= pv.row_vecs || (k >= 0 && k < pv.row_vecs / pv.bvec));
     m[j] = e < pv.row_vecs ? __ldg(pv.su + k) - __ldg(pv.su + k + 1) : 0;
     e += 32;
     k += pv.q32;
@@ -203,6 +224,8 @@ __device__ __forceinline__ void load_step(Step<VW, L>& st,
   for (int j = 0; j < L; ++j) {
     const bool in = e < pv.row_vecs;
     const bool end = in && r == pv.bvec - 1;
+    REPRO_CHECK(!in || (e >= 0 && k >= 0 && k < pv.row_vecs / pv.bvec &&
+                        r >= 0 && r < pv.bvec));
     bool load = in;
     st.blk[j] = k;
     st.aux[j] = 0;
@@ -324,6 +347,10 @@ es_scan_kernel(ScanArgs a) {
   const int64_t row_words = static_cast<int64_t>(a.nb) * a.bw;
   const int64_t iu = a.ua ? a.ua[p] : p;
   const int64_t iv = a.vb ? a.vb[p] : p;
+  // Operand rows index the slab (cap rows) when gathered, else the batch.
+  REPRO_CHECK(iu >= 0 && iu < (a.ua ? a.cap : a.n_pairs));
+  REPRO_CHECK(iv >= 0 && iv < (a.vb ? a.cap : a.n_pairs));
+  REPRO_CHECK(W == 1 || wi < W);
   PairView<VW> pv;
   pv.u = reinterpret_cast<const T*>(a.U + iu * row_words);
   pv.v = reinterpret_cast<const T*>(a.V + iv * row_words);
@@ -336,7 +363,7 @@ es_scan_kernel(ScanArgs a) {
   pv.andnot = kDiff || a.andnot;
   pv.vflip = pv.andnot ? -1 : 0;
   const long long rho = a.rho[p];
-  const int thr = a.es_minsup;
+  const int thr = a.thr ? a.thr[p] : a.es_minsup;
   T* z = a.Z ? reinterpret_cast<T*>(a.Z + static_cast<int64_t>(p) * row_words)
              : nullptr;
   const int step_vecs = W * kWarpVecs;
@@ -452,6 +479,7 @@ es_scan_kernel(ScanArgs a) {
   const long long support = pv.andnot ? rho - carry : carry;
   const int slot = a.slots[p];
   if (support < a.gate_minsup || slot < 0 || slot >= a.cap) return;
+  REPRO_CHECK(a.child_suffix != nullptr);
 
   // Survivor epilogue: the same steps again, writing the child row and
   // its suffix table (suffix[k + 1] = total - count through block k).
@@ -484,6 +512,7 @@ es_scan_kernel(ScanArgs a) {
 #pragma unroll
     for (int j = 0; j < L; ++j) {
       if (st.live >> j & 1u) out[e0 + 32 * j + lane] = st.z[j];
+      REPRO_CHECK(!(st.ends >> j & 1u) || (st.blk[j] >= 0 && st.blk[j] < a.nb));
       if (st.ends >> j & 1u)
         osuf[st.blk[j] + 1] =
             static_cast<int32_t>(total - (before + off + st.incl[j]));
@@ -558,7 +587,8 @@ inline int launch_scan(const ScanArgs& a, cudaStream_t stream) {
 inline ScanArgs make_scan_args(const void* U, const void* V, const void* su,
                                const void* sv, const void* ua, const void* vb,
                                const void* rho, int n_pairs, int nb, int bw,
-                               int es_minsup, int andnot, void* Z, void* cnt,
+                               int es_minsup, const void* thr, int andnot,
+                               void* Z, void* cnt,
                                void* blocks, void* alive, void* child_rows,
                                void* child_suffix, const void* slots, int cap,
                                int gate_minsup) {
@@ -574,6 +604,7 @@ inline ScanArgs make_scan_args(const void* U, const void* V, const void* su,
   a.nb = nb;
   a.bw = bw;
   a.es_minsup = es_minsup;
+  a.thr = static_cast<const int32_t*>(thr);
   a.andnot = andnot;
   a.Z = static_cast<int32_t*>(Z);
   a.cnt = static_cast<int32_t*>(cnt);

@@ -71,9 +71,23 @@
 //
 // C interface (ctypes): pointers and the stream are void*, sizes int or
 // long long; each entry returns cudaGetLastError() after its launch.
+//
+// The checked build (-DREPRO_CHECKED, kernels/_build.py) turns REPRO_CHECK
+// into a device-side assert on every global index against its extent and
+// on every window bound, and adds repro_nlist_set_packed_adv, which makes
+// the merge build its adv mask in the packed form desc | (x.pre <= y.pre)
+// instead of the committed (x.pre <= y.pre) | (x.post < y.post): the same
+// predicate, kept to reproduce one unexplained reading on the card.
 
+#include <cassert>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifdef REPRO_CHECKED
+#define REPRO_CHECK(cond) assert(cond)
+#else
+#define REPRO_CHECK(cond) ((void)0)
+#endif
 
 namespace {
 
@@ -158,6 +172,7 @@ struct RowMasks {
 // column c (x is a descendant of y, or x.pre <= y.pre), bit c of desc
 // where x is a descendant of y (x.pre > y.pre and x.post < y.post).  The
 // V window is read from shared memory by broadcast.
+template <bool kPacked>
 __device__ __forceinline__ RowMasks row_masks(int x_pre, int x_post, const int2* vw,
                                               unsigned cols) {
   unsigned le = 0, post_lt = 0;
@@ -167,11 +182,13 @@ __device__ __forceinline__ RowMasks row_masks(int x_pre, int x_post, const int2*
     le |= static_cast<unsigned>(x_pre <= y.x) << c;
     post_lt |= static_cast<unsigned>(x_post < y.y) << c;
   }
+  const unsigned desc = ~le & post_lt & cols;
+  if (kPacked) return {(desc | le) & cols, desc};
   // desc || x.pre <= y.pre  ==  x.pre <= y.pre || x.post < y.post
-  return {(le | post_lt) & cols, ~le & post_lt & cols};
+  return {(le | post_lt) & cols, desc};
 }
 
-template <bool kEarlyStop>
+template <bool kEarlyStop, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 nl_merge_kernel(const int32_t* __restrict__ codes, int64_t cap,
                 const int32_t* __restrict__ u_off, const int32_t* __restrict__ u_len,
@@ -194,6 +211,9 @@ nl_merge_kernel(const int32_t* __restrict__ codes, int64_t cap,
   const int64_t uo = u_off[p], vo = v_off[p];
   const int rho = rho_v[p];
   int32_t* row = out_slot + p * lu;
+  REPRO_CHECK(nu >= 0 && nv >= 0 && nu <= lu);
+  REPRO_CHECK(nu == 0 || (uo >= 0 && uo + nu <= cap));
+  REPRO_CHECK(nv == 0 || (vo >= 0 && vo + nv <= cap));
 
   int z_mass = 0, cmps = 0, checks = 0, groups = 0, last_j = -1;
   bool alive = true;
@@ -219,7 +239,7 @@ nl_merge_kernel(const int32_t* __restrict__ codes, int64_t cap,
     }
     sm.vw[lane] = make_int2(y.pre, y.post);
     __syncwarp();
-    RowMasks m = row_masks(x.pre, x.post, sm.vw, cols);
+    RowMasks m = row_masks<kPacked>(x.pre, x.post, sm.vw, cols);
     int my_slot = kSentinel;  // lane r: U code ib + r's match
 
     for (;;) {
@@ -242,6 +262,11 @@ nl_merge_kernel(const int32_t* __restrict__ codes, int64_t cap,
       const int r_end = right ? __ffs(exits) - 1 : nrows;  // rows [r0, r_end) take an i-step
       const bool istep = lane >= r0 && lane < r_end;
       const int c_end = right ? ncols : __shfl_sync(kFull, e, (r_end - 1) & 31);
+      REPRO_CHECK(ib >= 0 && ib < nu && jb >= 0 && jb < nv);
+      REPRO_CHECK(nrows >= 1 && nrows <= 32 && ncols >= 1 && ncols <= 32);
+      REPRO_CHECK(r0 >= 0 && r0 <= r_end && r_end <= nrows);
+      REPRO_CHECK(c0 >= 0 && c0 <= c_end && c_end <= ncols);
+      REPRO_CHECK(!live || (e >= c0 && e <= 32));
 
       // 2. Matches, z_mass and Z-merge groups along the path.  Hit
       // columns never decrease along the path: a hit starts a group where
@@ -293,6 +318,7 @@ nl_merge_kernel(const int32_t* __restrict__ codes, int64_t cap,
           const int run_end = exit_row ? ncols : e;
           const bool has_run = (istep || exit_row) && run_end > prev;
           const unsigned run_starts = __reduce_or_sync(kFull, has_run ? 1u << prev : 0u);
+          REPRO_CHECK(!has_run || (prev >= 0 && prev < 32));
           if (has_run) {
             sm.own_row[prev] = lane;
             sm.own_z[prev] = z_before;
@@ -300,6 +326,7 @@ nl_merge_kernel(const int32_t* __restrict__ codes, int64_t cap,
           __syncwarp();
           if (lane >= c0 && lane < c_end) {
             const int s = 31 - __clz(run_starts & (kFull >> (31 - lane)));
+            REPRO_CHECK(s >= c0 && s <= lane);
             const int owner = sm.own_row[s];
             if (!guard_holds(sm.own_z[s], rho, s_in, minsup))
               key = ((owner - r0) + (lane - c0)) * 64 + (lane - c0 + 1);
@@ -345,7 +372,7 @@ nl_merge_kernel(const int32_t* __restrict__ codes, int64_t cap,
         }
         sm.vw[lane] = make_int2(y.pre, y.post);
         __syncwarp();
-        m = row_masks(x.pre, x.post, sm.vw, cols);
+        m = row_masks<kPacked>(x.pre, x.post, sm.vw, cols);
         r0 = r_end;
         c0 = 0;
       } else {
@@ -357,7 +384,7 @@ nl_merge_kernel(const int32_t* __restrict__ codes, int64_t cap,
         x_n1 = x_n2;
         x_n2 = load_code(codes, cap, uo + ib + 64 + lane);
         nrows = min(32, nu - ib);
-        m = row_masks(x.pre, x.post, sm.vw, cols);
+        m = row_masks<kPacked>(x.pre, x.post, sm.vw, cols);
         my_slot = kSentinel;
         r0 = 0;
         c0 = c_end;
@@ -391,6 +418,7 @@ zmerge_scatter_kernel(int32_t* codes, int64_t cap, const int32_t* __restrict__ o
   if (p >= n_pairs) return;  // warp-uniform
   const int32_t* srow = out_slot + p * lu;
   const int nu = u_len[p], nv = v_len[p];
+  REPRO_CHECK(nu >= 0 && nv >= 0);
   const int64_t uo = u_off[p], vo = v_off[p], base = out_off[p];
   // Whether any destination base + g (g < child_len <= lu) is in [0, cap).
   const bool writes = base < cap && base + lu > 0;
@@ -400,6 +428,7 @@ zmerge_scatter_kernel(int32_t* codes, int64_t cap, const int32_t* __restrict__ o
     const int64_t dest = base + g;
     if (dest < 0 || dest >= cap) return;
     const bool in_v = rep < nv;
+    REPRO_CHECK(rep >= 0 && (!in_v || (vo >= 0 && vo + rep < cap)));
     const int32_t* y = code_at(codes, cap, vo + rep);
     int32_t* out = codes + 3 * dest;
     out[0] = in_v ? y[0] : kSentinel;
@@ -467,6 +496,7 @@ zmerge_scatter_kernel(int32_t* codes, int64_t cap, const int32_t* __restrict__ o
       int f[4], lmass = 0;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
+        REPRO_CHECK(!(s[t] != kSentinel && i0 + t < nu) || (uo >= 0 && uo + i0 + t < cap));
         f[t] = (s[t] != kSentinel && i0 + t < nu) ? code_at(codes, cap, uo + i0 + t)[2] : 0;
         lmass = wadd(lmass, f[t]);
       }
@@ -524,7 +554,18 @@ unsigned grid_for(long long n_pairs) {
   return static_cast<unsigned>((n_pairs + kWarps - 1) / kWarps);
 }
 
+#ifdef REPRO_CHECKED
+bool g_packed_adv = false;
+#endif
+
 }  // namespace
+
+#ifdef REPRO_CHECKED
+extern "C" int repro_nlist_set_packed_adv(int on) {
+  g_packed_adv = on != 0;
+  return 0;
+}
+#endif
 
 extern "C" int repro_nlist_merge(const void* codes, long long cap, const void* u_off,
                                  const void* u_len, const void* v_off, const void* v_len,
@@ -532,7 +573,11 @@ extern "C" int repro_nlist_merge(const void* codes, long long cap, const void* u
                                  int minsup, int early_stop, void* out_slot,
                                  void* child_len, void* support, void* cmps,
                                  void* checks, void* alive, void* stream) {
-  auto kernel = early_stop ? nl_merge_kernel<true> : nl_merge_kernel<false>;
+  auto kernel = early_stop ? nl_merge_kernel<true, false> : nl_merge_kernel<false, false>;
+#ifdef REPRO_CHECKED
+  if (g_packed_adv)
+    kernel = early_stop ? nl_merge_kernel<true, true> : nl_merge_kernel<false, true>;
+#endif
   kernel<<<grid_for(n_pairs), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(codes), cap, static_cast<const int32_t*>(u_off),
       static_cast<const int32_t*>(u_len), static_cast<const int32_t*>(v_off),

@@ -33,7 +33,8 @@ Tensor = torch.Tensor
 
 
 def _launch(U, V, su, ua, vb, rho, *, es_minsup: int, Z, cnt, blocks,
-            alive, child_rows, child_suffix, slots, gate_minsup: int) -> None:
+            alive, child_rows, child_suffix, slots, gate_minsup: int,
+            thr=None) -> None:
     n_pairs = int(rho.shape[0])
     if n_pairs == 0:
         return
@@ -42,7 +43,8 @@ def _launch(U, V, su, ua, vb, rho, *, es_minsup: int, Z, cnt, blocks,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _build.load().repro_diff_scan(
         ptr(U), ptr(V), ptr(su), ptr(ua), ptr(vb), ptr(rho), n_pairs,
-        int(nb), int(bw), int(es_minsup), ptr(Z), ptr(cnt), ptr(blocks),
+        int(nb), int(bw), int(es_minsup), ptr(thr), ptr(Z), ptr(cnt),
+        ptr(blocks),
         ptr(alive), ptr(child_rows), ptr(child_suffix), ptr(slots), cap,
         int(gate_minsup), torch.cuda.current_stream(U.device).cuda_stream)
     _build.check(err, "bitmap_diff_es")
@@ -50,21 +52,25 @@ def _launch(U, V, su, ua, vb, rho, *, es_minsup: int, Z, cnt, blocks,
 
 
 def bitmap_diff_es(U: Tensor, V: Tensor, suffix_u: Tensor,
-                   rho_parent: Tensor, minsup: int,
+                   rho_parent: Tensor, minsup: int, *,
+                   thr: "Tensor | None" = None,
                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Standalone blocked difference ``Z = U & ~V`` over ``U``/``V`` int32
-    (P, nb, bw) on the bound ``rho - count`` (``minsup <= 0`` disables
-    ES).  Returns ``(Z, counts, blocks_done, alive)``."""
+    (P, nb, bw) on the bound ``rho - count``, against ``minsup`` or, where
+    given, ``thr`` int32 (P,) per pair.  Returns ``(Z, counts,
+    blocks_done, alive)``."""
     P, nb, bw = U.shape
     _check(U, "U")
     _check(V, "V", (P, nb, bw))
     _check(suffix_u, "suffix_u", (P, nb + 1))
     _check(rho_parent, "rho_parent", (P,))
+    if thr is not None:
+        _check(thr, "thr", (P,))
     Z = torch.empty_like(U)
     cnt, blocks, alive = _outputs(P, U.device)
     _launch(U, V, suffix_u, None, None, rho_parent, es_minsup=minsup, Z=Z,
             cnt=cnt, blocks=blocks, alive=alive, child_rows=None,
-            child_suffix=None, slots=None, gate_minsup=0)
+            child_suffix=None, slots=None, gate_minsup=0, thr=thr)
     return Z, cnt, blocks, alive
 
 
@@ -73,13 +79,15 @@ bitmap_diff_es.launches = 0
 
 def screen_and_diff(rows: Tensor, suffix: Tensor, ua: Tensor, vb: Tensor,
                     slots: Tensor, rho_parent: Tensor, minsup: int,
-                    es_minsup: int) -> Tuple[Tensor, Tensor, Tensor]:
+                    es_minsup: int, *, thr: "Tensor | None" = None,
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
     """Fused gather + blocked difference + survivor-only scatter over the
     row store.  ``rows`` int32 (cap, nb, bw) and ``suffix`` int32 (cap,
     nb+1) are updated **in place**; a child is written at ``slots[i]``
     iff pair ``i`` finished alive, ``rho - count`` clears ``minsup`` and
     ``0 <= slots[i] < cap``.  ``es_minsup`` is the abort threshold (0 =
-    ES off).  Returns ``(counts, blocks_done, alive)``."""
+    ES off), or ``thr`` int32 (P,) per pair where given.  Returns
+    ``(counts, blocks_done, alive)``."""
     cap, nb, bw = rows.shape
     P = int(ua.shape[0])
     _check(rows, "rows")
@@ -87,8 +95,10 @@ def screen_and_diff(rows: Tensor, suffix: Tensor, ua: Tensor, vb: Tensor,
     for t, name in ((ua, "ua"), (vb, "vb"), (slots, "slots"),
                     (rho_parent, "rho_parent")):
         _check(t, name, (P,))
+    if thr is not None:
+        _check(thr, "thr", (P,))
     cnt, blocks, alive = _outputs(P, rows.device)
     _launch(rows, rows, suffix, ua, vb, rho_parent, es_minsup=es_minsup,
             Z=None, cnt=cnt, blocks=blocks, alive=alive, child_rows=rows,
-            child_suffix=suffix, slots=slots, gate_minsup=minsup)
+            child_suffix=suffix, slots=slots, gate_minsup=minsup, thr=thr)
     return cnt, blocks, alive

@@ -18,7 +18,10 @@ mining path never passes ``"plain"``.
 ``screen_and_intersect`` / ``screen_and_diff`` are the bitmap hot paths:
 one launch per pair chunk against the device-resident row store, which
 they update **in place** (the JAX versions donate and return new
-buffers; the port returns the same tensors).  ``nlist_presize`` +
+buffers; the port returns the same tensors).
+:func:`make_screen_and_intersect_sharded` is their count-distribution
+form over a ``(block, cls)`` mesh of processes, each holding a block
+shard of the store.  ``nlist_presize`` +
 ``nlist_scatter`` are the PrePost+ hot path over the N-list pool, the
 scatter again in place.  Index columns may be given as host numpy
 arrays: :func:`upload_columns` moves them in one copy, from pinned
@@ -27,10 +30,11 @@ memory without blocking on CUDA.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import bitmap_diff as _bd
 from . import bitmap_intersect as _bi
@@ -39,10 +43,13 @@ from . import flash_attention as _fa
 from . import nlist_merge as _nl
 from . import ref as _ref
 from . import segment_embed as _se
+from repro_torch.core.bitmap import popcount32, suffix_popcounts
+from repro_torch.core.guards import host_sync
 
 Tensor = torch.Tensor
 
 _INT32_MIN = -(2 ** 31)
+_INT32_MAX = 2 ** 31 - 1
 
 
 def _use_kernel(t: Tensor, backend: str) -> bool:
@@ -85,13 +92,19 @@ def _as_i32(x, device: torch.device) -> Tensor:
 
 def bitmap_intersect_es(U: Tensor, V: Tensor, suffix_u: Tensor,
                         suffix_v: Tensor, rho_parent: Tensor, minsup: int,
-                        *, mode: str = "and", backend: str = "auto",
+                        *, mode: str = "and", thr: "Tensor | None" = None,
+                        backend: str = "auto",
                         ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Blocked early-stopping intersection (``ref.bitmap_intersect_es_ref``
-    semantics).  Returns ``(Z, counts, blocks_done, alive)``."""
+    semantics) against ``minsup``, or against ``thr`` int32 (P,) per pair
+    where given (``ref._blocked_es_scan``).  Returns ``(Z, counts,
+    blocks_done, alive)``."""
     if _use_kernel(U, backend):
         return _bi.bitmap_intersect_es(U, V, suffix_u, suffix_v, rho_parent,
-                                       int(minsup), mode=mode)
+                                       int(minsup), mode=mode, thr=thr)
+    if thr is not None:
+        return _ref._blocked_es_scan(U, V, suffix_u, suffix_v, rho_parent,
+                                     thr, mode=mode)
     return _ref.bitmap_intersect_es_ref(U, V, suffix_u, suffix_v,
                                         rho_parent, minsup, mode=mode)
 
@@ -125,13 +138,18 @@ def screen_and_intersect(rows: Tensor, suffix: Tensor, ua, vb, slots,
 
 
 def bitmap_diff_es(U: Tensor, V: Tensor, suffix_u: Tensor,
-                   rho_parent: Tensor, minsup: int, *, backend: str = "auto",
+                   rho_parent: Tensor, minsup: int, *,
+                   thr: "Tensor | None" = None, backend: str = "auto",
                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Blocked dEclat difference with zero-block skipping
-    (``ref.bitmap_diff_es_ref`` semantics).  Returns ``(Z, counts,
+    (``ref.bitmap_diff_es_ref`` semantics) against ``minsup``, or against
+    ``thr`` int32 (P,) per pair where given.  Returns ``(Z, counts,
     blocks_done, alive)``."""
     if _use_kernel(U, backend):
-        return _bd.bitmap_diff_es(U, V, suffix_u, rho_parent, int(minsup))
+        return _bd.bitmap_diff_es(U, V, suffix_u, rho_parent, int(minsup),
+                                  thr=thr)
+    if thr is not None:
+        return _ref._blocked_diff_scan(U, V, suffix_u, rho_parent, thr)
     return _ref.bitmap_diff_es_ref(U, V, suffix_u, rho_parent, minsup)
 
 
@@ -157,6 +175,219 @@ def screen_and_diff(rows: Tensor, suffix: Tensor, ua, vb, slots,
         return rows, suffix, cnt, blocks, alive
     return _ref.screen_and_diff_ref(rows, suffix, ua, vb, slots, rho,
                                     minsup, early_stop=early_stop)
+
+
+# ---------------------------------------------------------------------------
+# The sharded fused dispatch (count distribution over a (block, cls) mesh)
+# ---------------------------------------------------------------------------
+
+class _Collectives:
+    """The sharded dispatch's collectives.  Under gloo with CUDA tensors
+    every collective is staged through the host — the vector is copied to
+    the host, reduced or gathered there and copied back — always in that
+    configuration, never as a recovery from an error.  Under NCCL (CUDA)
+    and gloo (CPU) the tensors go to the collective as they are."""
+
+    def __init__(self, device: torch.device, backend: str):
+        self.staged = device.type == "cuda" and backend == "gloo"
+
+    def all_reduce(self, t: Tensor, group) -> Tensor:
+        """Sum ``t`` over ``group`` in place; returns ``t``."""
+        if not self.staged:
+            dist.all_reduce(t, group=group)
+            return t
+        # host-sync: gloo reduces on the host; one vector each way
+        with host_sync("gloo collective staged through the host"):
+            h = t.cpu()
+            dist.all_reduce(h, group=group)
+            t.copy_(h)
+        return t
+
+    def all_gather(self, t: Tensor, group, n: int) -> Tensor:
+        """``(n,) + t.shape``: every rank's ``t``, in group-rank order."""
+        if not self.staged:
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            return torch.stack(parts)
+        # host-sync: gloo gathers on the host; one vector each way
+        with host_sync("gloo collective staged through the host"):
+            h = t.cpu()
+            parts = [torch.empty_like(h) for _ in range(n)]
+            dist.all_gather(parts, h, group=group)
+            return torch.stack(parts).to(t.device)
+
+
+class ShardedScreen:
+    """The fused gather + screen + blocked ES + survivor scatter of one
+    pair chunk over a ``(block, cls)`` mesh (port of the program
+    ``repro.kernels.ops.make_screen_and_intersect_sharded`` builds),
+    bit for bit against ``ref.screen_and_intersect_sharded_ref`` with
+    ``n_shards`` = the mesh's block size and ``n_cls`` its cls size.
+
+    Each rank holds its block shard of the store: ``rows`` (cap, nb_local,
+    bw) and its local suffix tables ``suffix`` (cap, nb_local + 1)
+    (``DeviceRowStore`` sharded mode); every rank of a block shard holds
+    the same slab.  A call takes the chunk's full columns (the same on
+    every rank), pads them to a multiple of the cls size with ``slot =
+    cap``, and works on its cls rank's contiguous slice:
+
+    1. mode "and" with ES: all-reduce ``m = min(sufU[0], sufV[0])`` over
+       the block group and set ``thr = minsup - (sum m - m)``, the mass
+       every other shard could still add; mode "andnot": ``thr = minsup``;
+       ES off: INT32_MIN, which never kills;
+    2. the scan kernel against ``thr`` (per pair), every slot set to
+       ``cap``: counts, blocks and aliveness, no child;
+    3. ``c0`` (block 0's popcount of Z) and the local screen bound; mode
+       "and" clamps ``blocks`` to the shard's real blocks (the pad tail
+       is discounted), mode "andnot" keeps the kernel's nonzero-mass
+       counter; one all-reduce of ``(count, blocks, dead, bound)`` over
+       the block group;
+    4. with cls > 1, one all-gather of those vectors over the cls group:
+       every rank then holds the whole chunk's;
+    5. the global survivor mask (``ref._survivor_mask``), and a second
+       launch over the whole chunk that writes the survivors' child rows
+       and local suffix tables: threshold INT32_MIN for a survivor,
+       INT32_MAX (dies in its first step) for the rest, non-survivors'
+       slots set to ``cap``, gate INT32_MIN (the kernel's own gate tests
+       the local support, which must not decide).  Every cls replica
+       recomputes the same survivors from its copy, so the replicas stay
+       equal without moving Z.
+
+    On CPU tensors the plain scans (``ref._blocked_es_scan`` /
+    ``_blocked_diff_scan``) and a plain scatter take the kernel's place;
+    on CUDA tensors it launches the kernel or raises.  Returns ``(rows,
+    suffix, bound, count, blocks, alive)``, the per-pair vectors global
+    and of the unpadded chunk's length."""
+
+    def __init__(self, mesh, *, mode: str = "and", early_stop: bool = True):
+        _ref._check_mode(mode)
+        if tuple(mesh.mesh_dim_names or ()) != ("block", "cls"):
+            raise ValueError(f"the mesh's dimensions must be ('block', "
+                             f"'cls'), got {mesh.mesh_dim_names}")
+        self.mode = mode
+        self.early_stop = early_stop
+        self.n_shards = mesh.size(0)
+        self.n_cls = mesh.size(1)
+        self.shard = mesh.get_local_rank("block")
+        self.cls_rank = mesh.get_local_rank("cls")
+        self.block_group = mesh.get_group("block")
+        self.cls_group = mesh.get_group("cls")
+        self._dist_backend = dist.get_backend(self.block_group)
+
+    def __call__(self, rows: Tensor, suffix: Tensor, ua, vb, slots,
+                 rho_parent, minsup: int, n_real_blocks: Optional[int] = None,
+                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+        dev = rows.device
+        cap, nbl, _ = rows.shape
+        kernel = _use_kernel(rows, "auto")
+        coll = _Collectives(dev, self._dist_backend)
+        andnot = self.mode == "andnot"
+        minsup = int(minsup)
+        ua, vb, slots, rho = (_as_i32(x, dev) for x in (ua, vb, slots,
+                                                         rho_parent))
+        n = int(ua.shape[0])
+        pad = -n % self.n_cls
+        if pad:                 # pad pairs read row 0 and write nothing
+            zero = torch.zeros(pad, dtype=torch.int32, device=dev)
+            ua, vb, rho = (torch.cat([x, zero]) for x in (ua, vb, rho))
+            slots = torch.cat([slots, torch.full_like(zero, cap)])
+        k = (n + pad) // self.n_cls
+        lo = self.cls_rank * k
+        ua_s, vb_s, rho_s = (x[lo:lo + k].contiguous()
+                             for x in (ua, vb, rho))
+        su = suffix.index_select(0, ua_s)
+        sv = suffix.index_select(0, vb_s)
+
+        # 1. the per-pair threshold
+        thr, es_minsup = None, _INT32_MIN
+        if self.early_stop and andnot:
+            es_minsup = minsup
+        elif self.early_stop:
+            m = torch.minimum(su[:, 0], sv[:, 0])
+            total = coll.all_reduce(m.clone(), self.block_group)
+            thr = (minsup - (total - m)).to(torch.int32)
+        # 2. the scan: counts, blocks, aliveness; no child
+        cnt, blocks, alive = self._scan(rows, suffix, ua_s, vb_s, rho_s,
+                                        thr, es_minsup, minsup, kernel)
+        # 3. the screen bound from block 0, and the fused all-reduce
+        u0 = rows.index_select(0, ua_s)[:, 0]
+        v0 = rows.index_select(0, vb_s)[:, 0]
+        c0 = popcount32(u0 & (~v0 if andnot else v0)).sum(dim=-1)
+        if andnot:
+            bound = c0
+        else:
+            bound = c0 + torch.minimum(su[:, 1], sv[:, 1])
+            n_real = (self.n_shards * nbl if n_real_blocks is None
+                      else int(n_real_blocks))
+            real_local = min(max(n_real - self.shard * nbl, 0), nbl)
+            blocks = blocks.clamp(max=real_local)
+        vec = torch.stack([cnt, blocks, (~alive).to(torch.int32),
+                           bound.to(torch.int32)])
+        coll.all_reduce(vec, self.block_group)
+        # 4. the whole chunk's vectors on every rank
+        if self.n_cls > 1:
+            vec = coll.all_gather(vec, self.cls_group, self.n_cls)
+            vec = vec.permute(1, 0, 2).reshape(4, self.n_cls * k)
+        count, blocks, dead, bound = vec.unbind(0)
+        if andnot:
+            bound = rho - bound
+        alive = dead == 0
+        # 5. survivors only: the second launch writes their children
+        keep = (_ref._survivor_mask(count, alive, rho, minsup,
+                                    mode=self.mode)
+                & (slots >= 0) & (slots < cap))
+        self._scatter(rows, suffix, ua, vb, slots, rho, keep, kernel)
+        return (rows, suffix, bound[:n].contiguous(), count[:n].contiguous(),
+                blocks[:n].contiguous(), alive[:n].contiguous())
+
+    def _scan(self, rows, suffix, ua, vb, rho, thr, es_minsup, minsup,
+              kernel) -> Tuple[Tensor, Tensor, Tensor]:
+        if kernel:
+            nowhere = torch.full_like(ua, rows.shape[0])
+            if self.mode == "andnot":
+                return _bd.screen_and_diff(rows, suffix, ua, vb, nowhere, rho,
+                                           minsup, es_minsup, thr=thr)
+            return _bi.screen_and_intersect(rows, suffix, ua, vb, nowhere,
+                                            rho, minsup, es_minsup,
+                                            mode="and", thr=thr)
+        if thr is None:
+            thr = torch.full_like(ua, es_minsup)
+        U, V = rows.index_select(0, ua), rows.index_select(0, vb)
+        su = suffix.index_select(0, ua)
+        if self.mode == "andnot":
+            _, cnt, blocks, alive = _ref._blocked_diff_scan(U, V, su, rho, thr)
+        else:
+            _, cnt, blocks, alive = _ref._blocked_es_scan(
+                U, V, su, suffix.index_select(0, vb), rho, thr, mode="and")
+        return cnt, blocks, alive
+
+    def _scatter(self, rows, suffix, ua, vb, slots, rho, keep,
+                 kernel) -> None:
+        if kernel:
+            thr = torch.where(keep, _INT32_MIN, _INT32_MAX).to(torch.int32)
+            dst = torch.where(keep, slots, rows.shape[0]).to(torch.int32)
+            if self.mode == "andnot":
+                _bd.screen_and_diff(rows, suffix, ua, vb, dst, rho,
+                                    _INT32_MIN, _INT32_MIN, thr=thr)
+            else:
+                _bi.screen_and_intersect(rows, suffix, ua, vb, dst, rho,
+                                         _INT32_MIN, _INT32_MIN, mode="and",
+                                         thr=thr)
+            return
+        U, V = rows[ua[keep].long()], rows[vb[keep].long()]
+        Z = U & (~V if self.mode == "andnot" else V)
+        dst = slots[keep].long()
+        rows[dst] = Z
+        suffix[dst] = suffix_popcounts(Z)
+
+
+def make_screen_and_intersect_sharded(mesh, *, mode: str = "and",
+                                      early_stop: bool = True,
+                                      ) -> ShardedScreen:
+    """The sharded fused dispatch over ``mesh`` (a ``(block, cls)``
+    ``DeviceMesh``, ``launch.mesh.make_mining_mesh``); see
+    :class:`ShardedScreen`."""
+    return ShardedScreen(mesh, mode=mode, early_stop=early_stop)
 
 
 def compact_rows(rows: Tensor, suffix: Tensor, perm, *,

@@ -196,6 +196,120 @@ def screen_and_diff_ref(rows: Tensor, suffix: Tensor, ua: Tensor,
     return rows, suffix, cnt, blocks, alive
 
 
+_INT32_MIN = -(2 ** 31)
+
+
+def _sharded_slice(rows: Tensor, suffix: Tensor, ua: Tensor, vb: Tensor,
+                   rho: Tensor, minsup: int, n_real: int, *, n_shards: int,
+                   mode: str, early_stop: bool):
+    """One cls shard's pair slice over every virtual block shard: the
+    per-pair math of the sharded dispatch up to, not including, the
+    scatter.  Returns ``(Z, child_suffix, bound, count, blocks, alive)``."""
+    _, nb, bw = rows.shape
+    nbl = nb // n_shards
+    n = ua.shape[0]
+    S = n_shards
+    U = rows.index_select(0, ua).reshape(n * S, nbl, bw)
+    V = rows.index_select(0, vb).reshape(n * S, nbl, bw)
+    su = suffix.index_select(0, ua).reshape(n * S, nbl + 1)
+    sv = suffix.index_select(0, vb).reshape(n * S, nbl + 1)
+    rho_s = rho.to(torch.int32).repeat_interleave(S)
+    if not early_stop:
+        thr = torch.full((n * S,), _INT32_MIN, dtype=torch.int32,
+                         device=rows.device)
+    elif mode == "and":
+        m = torch.minimum(su[:, 0], sv[:, 0]).reshape(n, S).to(torch.int64)
+        slack = m.sum(dim=1, keepdim=True) - m      # every OTHER shard's
+        thr = (int(minsup) - slack).reshape(-1).to(torch.int32)
+    else:
+        thr = torch.full((n * S,), int(minsup), dtype=torch.int32,
+                         device=rows.device)
+    if mode == "and":
+        Z, cnt, blocks, alive = _blocked_es_scan(U, V, su, sv, rho_s, thr,
+                                                 mode="and")
+        # The block axis is padded to the shard count at the tail; a
+        # shard's scan count is clamped to its real blocks.
+        real_local = (n_real - torch.arange(S, device=rows.device) * nbl
+                      ).clamp(0, nbl)
+        blocks = torch.minimum(blocks.reshape(n, S), real_local[None, :])
+    else:
+        # The skip-aware counter of the diff scan: nonzero-mass U blocks
+        # visited (pad blocks have no mass).
+        Z, cnt, blocks, alive = _blocked_diff_scan(U, V, su, rho_s, thr)
+        blocks = blocks.reshape(n, S)
+    zpc = popcount32(Z).sum(dim=-1).reshape(n, S, nbl)
+    c0 = zpc[:, :, 0].to(torch.int64)
+    if mode == "and":
+        bound = (c0 + torch.minimum(su[:, 1], sv[:, 1]).reshape(n, S)
+                 ).sum(dim=1)
+    else:
+        bound = rho.to(torch.int64) - c0.sum(dim=1)
+    child_suffix = suffix_popcounts(Z).reshape(n, S * (nbl + 1))
+    return (Z.reshape(n, nb, bw), child_suffix, bound.to(torch.int32),
+            cnt.reshape(n, S).sum(dim=1).to(torch.int32),
+            blocks.sum(dim=1).to(torch.int32),
+            alive.reshape(n, S).all(dim=1))
+
+
+def screen_and_intersect_sharded_ref(
+        rows: Tensor, suffix: Tensor, ua: Tensor, vb: Tensor, slots: Tensor,
+        rho_parent: Tensor, minsup, n_real_blocks=None, *, n_shards: int,
+        n_cls: int = 1, mode: str = "and", early_stop: bool = True,
+        ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The sharded fused dispatch in one process, with ``n_shards``
+    virtual block shards and ``n_cls`` virtual pair slices (port of
+    ``repro.kernels.ref.screen_and_intersect_sharded_ref``): the yardstick
+    of ``ops.make_screen_and_intersect_sharded``.
+
+    ``rows`` int32 (cap, nb, bw) holds every shard's blocks, ``nb`` a
+    multiple of ``n_shards`` with the pad at the tail; ``suffix`` int32
+    (cap, n_shards * (nb // n_shards + 1)) holds each shard's local
+    suffix table in turn (``DeviceRowStore``'s sharded layout).  Per pair:
+
+    * ``thr`` per shard: ``minsup - slack`` in mode "and" with ES, where
+      slack is ``sum over the OTHER shards of min(sufU[0], sufV[0])``;
+      minsup in mode "andnot"; INT32_MIN (never kills) with ES off;
+    * each shard's blocked scan against its threshold (mode "andnot"
+      counts the nonzero-mass U blocks visited, as the diff scan does);
+    * ``count``/``blocks`` summed over shards (mode "and" clamps each
+      shard's count of blocks to its real ones, ``n_real_blocks``), alive
+      iff every shard finished alive, ``bound`` the two-level screen:
+      ``sum_s (c0_s + min(sufU_s[1], sufV_s[1]))`` or ``rho - sum_s
+      c0_s`` with ``c0_s`` the popcount of the shard's block 0;
+    * survivors (global count and alive, ``_survivor_mask``) write their
+      child rows and local suffix tables at ``slots``; other slots and
+      slots outside ``[0, cap)`` stay untouched.
+
+    The chunk is cut into ``n_cls`` contiguous slices evaluated apart, so
+    every output is that of ``n_cls=1``.  Updates ``rows``/``suffix`` in
+    place and returns them with ``(bound, count, blocks, alive)``."""
+    _check_mode(mode)
+    n = ua.shape[0]
+    nb = rows.shape[1]
+    if n_cls < 1 or n % n_cls:
+        raise ValueError(f"pair chunk of {n} does not divide n_cls={n_cls}")
+    if nb % n_shards or suffix.shape[1] != n_shards * (nb // n_shards + 1):
+        raise ValueError(f"rows {tuple(rows.shape)} / suffix "
+                         f"{tuple(suffix.shape)} are not {n_shards} shards")
+    n_real = nb if n_real_blocks is None else int(n_real_blocks)
+    k = n // n_cls
+    parts = [_sharded_slice(rows, suffix, ua[c * k:(c + 1) * k],
+                            vb[c * k:(c + 1) * k],
+                            rho_parent[c * k:(c + 1) * k], minsup, n_real,
+                            n_shards=n_shards, mode=mode,
+                            early_stop=early_stop)
+             for c in range(n_cls)]
+    Z, child_suffix, bound, count, blocks, alive = (
+        torch.cat([p[i] for p in parts]) for i in range(6))
+    keep = _survivor_mask(count, alive, rho_parent, minsup, mode=mode)
+    cap = rows.shape[0]
+    keep = keep & (slots >= 0) & (slots < cap)
+    dst = slots[keep].to(torch.int64)
+    rows[dst] = Z[keep]
+    suffix[dst] = child_suffix[keep]
+    return rows, suffix, bound, count, blocks, alive
+
+
 def bitmap_count_ref(U: Tensor, V: Tensor) -> Tensor:
     """Plain AND + popcount support counting (no ES); int32 (P,)."""
     return popcount32(U & V).reshape(U.shape[0], -1).sum(dim=-1).to(

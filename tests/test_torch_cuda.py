@@ -651,3 +651,11 @@ def test_serving_paths_launch_their_kernels(cuda_device):
     vp, ip = R.retrieval_scores(tt, tcfg, *args, cand, topk=10,
                                 backend="plain")
     assert torch.equal(ik, ip) and (vk - vp).abs().max().item() <= 1e-5
+
+
+def test_sharded_dispatch_on_card_matches_plain(cuda_device):
+    """The sharded dispatch (``ops.ShardedScreen``) in a gloo world of two
+    ranks sharing the card, against the plain sharded dispatch: the scan
+    kernel with per-pair thresholds, then the survivors' second launch."""
+    import torch_dist_ranks
+    torch_dist_ranks.check_dispatch((2, 1), str(cuda_device), 300.0)

@@ -394,8 +394,11 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 12 else 0)\n")
+        "new = {'repro_torch.core.distributed', 'repro_torch.launch.mesh',\n"
+        "       'repro_torch.launch.multihost',\n"
+        "       'repro_torch.launch.forcedevices'}\n"
+        "print(len(mods), bad, sorted(new - set(mods)))\n"
+        "sys.exit(1 if bad or len(mods) < 12 or new - set(mods) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
