@@ -8,7 +8,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, and beside
 them the checked build (device asserts, ``kernels/_build.py``), both
-before any rank is spawned, and then:
+before any rank is spawned, and then (TF32 off throughout):
 
 1. holds every kernel against its plain PyTorch version on the card: bit
    for bit the ES scan (both modes, ES on/off, minsup <= 0, bw 1/8/128
@@ -70,7 +70,21 @@ before any rank is spawned, and then:
    on accidents-paper @ 1.0 on (2,1) (phase 5's itemsets); each rank
    must launch its scan kernel, and each mesh's wall and device busy are
    printed (one-card gloo numbers: collectives staged through the host);
-11. last, the checked build runs phase 1's ES and N-list sweeps again
+11. trains (``phase_train``, PERF.md §4's cells (a)-(f)): qwen1.5-0.5b
+   at full width through ``launch.train.train_lm`` (fp32, AdamW, 8 x
+   256, 10 steps: falling loss, step ms, tokens/s, peak memory, TFLOP/s);
+   the same widths at 2 layers, one step on the card against one on the
+   CPU (loss and grad norm within 1e-4); the config as configured (bf16,
+   remat "dots" and "full") at seq 4096 in 8 microbatches; the JAX
+   example's qwen1.5-mini recipe (200 steps, checkpoints) and a restart
+   from step 100 that replays its losses; granite-3-8b at 4 layers and
+   command-r-plus-104b at 1 layer (Adafactor), every width kept; and
+   full-size two-tower training through ``make_train_step(twotower_loss)``
+   with the EmbeddingBag kernel under its autograd rule (one launch a
+   step, the user tower bit-equal to the plain path, the item table's
+   gradient within 1e-6 of the plain autograd one);
+12. last, the checked build runs phase 1's flash sweep (each output equal
+   to the normal build's bit for bit) and its ES and N-list sweeps again
    (a failed device assert traps and fails the run), then the N-list
    sweeps with the merge's adv mask in its packed form, whose reading is
    printed.
@@ -254,21 +268,33 @@ FLASH_CASES = (
 )
 
 
-def _check_flash(dev, close) -> None:
-    """flash_attention against its plain version (dense fp32 softmax)."""
+def _flash_sweep(dev) -> list:
+    """(kernel, plain) outputs of flash_attention over ``FLASH_CASES``,
+    the inputs drawn from one seeded generator."""
     import torch
     from repro_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(0)
+    out = []
     for B, Sq, Skv, H, KH, D, Dv, causal, dtype, tol in FLASH_CASES:
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
                    for shape in ((B, Sq, H, D), (B, Skv, KH, D),
                                  (B, Skv, KH, Dv)))
-        close("flash_attention", ops.flash_attention(q, k, v, causal=causal),
-              ops.flash_attention(q, k, v, causal=causal, backend="plain"),
-              tol, f"B={B} Sq={Sq} Skv={Skv} H={H} KH={KH} D={D} Dv={Dv} "
-                   f"causal={causal} {dtype}")
+        out.append((ops.flash_attention(q, k, v, causal=causal),
+                    ops.flash_attention(q, k, v, causal=causal,
+                                        backend="plain")))
+    return out
+
+
+def _check_flash(dev, close) -> None:
+    """flash_attention against its plain version (dense fp32 softmax)."""
+    for case, (got, want) in zip(FLASH_CASES, _flash_sweep(dev),
+                                 strict=True):
+        B, Sq, Skv, H, KH, D, Dv, causal, dtype, tol = case
+        close("flash_attention", got, want, tol,
+              f"B={B} Sq={Sq} Skv={Skv} H={H} KH={KH} D={D} Dv={Dv} "
+              f"causal={causal} {dtype}")
 
 
 def _check_bag(dev, rng, close) -> None:
@@ -1164,49 +1190,51 @@ def phase_serve(dev, counters, seed) -> dict:
          and gen.max() < cfg.padded_vocab, f"serve: bad tokens {gen.shape}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
-    # Layer 0's attention at this shape, kernel against plain.
-    tokens = torch.from_numpy(prompts).to(dev)
-    lp = model.layers[0]
-    h = L.rmsnorm(lp.attn_norm, model.embed.table[tokens.long()],
-                  cfg.norm_eps)
-    q, k, v = L._qkv(lp.attn, h, cfg.param_dtype)
-    pos = torch.arange(S, device=dev).expand(B, S)
-    q = L.apply_rope(q, pos, cfg.rope_theta)
-    k = L.apply_rope(k, pos, cfg.rope_theta)
-    o_k = ops.flash_attention(q, k, v)
-    o_p = ops.flash_attention(q, k, v, backend="plain")
-    need(bool(torch.isfinite(o_k.float()).all().item()),
-         "serve: layer-0 attention not finite")
-    attn_err = (o_k.float() - o_p.float()).abs().max().item()
-    need(attn_err < 3e-2, f"serve: layer-0 attention at {tuple(q.shape)} "
-                          f"disagrees with its plain version ({attn_err})")
-    del h, o_k, o_p
-    gen_p = serve_greedy(cfg, prompts, new, model=model, device=dev,
-                         backend="plain", log_fn=_quiet)
-    rows_agree = int((gen == gen_p).all(axis=1).sum())
-    tok_agree = int((gen == gen_p).sum())
+    # Layer 0's attention at this shape, kernel against plain; then the
+    # fp32 prefills.  Serving builds no autograd graph.
+    with torch.inference_mode():
+        tokens = torch.from_numpy(prompts).to(dev)
+        lp = model.layers[0]
+        h = L.rmsnorm(lp.attn_norm, model.embed.table[tokens.long()],
+                      cfg.norm_eps)
+        q, k, v = L._qkv(lp.attn, h, cfg.param_dtype)
+        pos = torch.arange(S, device=dev).expand(B, S)
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+        o_k = ops.flash_attention(q, k, v)
+        o_p = ops.flash_attention(q, k, v, backend="plain")
+        need(bool(torch.isfinite(o_k.float()).all().item()),
+             "serve: layer-0 attention not finite")
+        attn_err = (o_k.float() - o_p.float()).abs().max().item()
+        need(attn_err < 3e-2, f"serve: layer-0 attention at {tuple(q.shape)} "
+                              f"disagrees with its plain version ({attn_err})")
+        del h, o_k, o_p
+        gen_p = serve_greedy(cfg, prompts, new, model=model, device=dev,
+                             backend="plain", log_fn=_quiet)
+        rows_agree = int((gen == gen_p).all(axis=1).sum())
+        tok_agree = int((gen == gen_p).sum())
 
-    # fp32 at the same widths: the kernel path against the plain path.
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model32 = T.init_params(cfg32, seed=seed, device=dev)
-    logit_k, cache = T.prefill(model32, cfg32, tokens)
-    del cache
-    logit_p, cache = T.prefill(model32, cfg32, tokens, backend="plain")
-    del cache
-    need(bool(torch.isfinite(logit_k).all().item()),
-         "serve fp32: prefill logits not finite")
-    logit_err = (logit_k - logit_p).abs().max().item()
-    need(logit_err < 1e-3, f"serve fp32: prefill logits kernel vs plain "
-                           f"{logit_err}")
-    t32 = {}
-    g32 = serve_greedy(cfg32, prompts, new, model=model32, device=dev,
-                       timings=t32, log_fn=say)
-    g32_p = serve_greedy(cfg32, prompts, new, model=model32, device=dev,
-                         backend="plain", log_fn=_quiet)
-    need(np.array_equal(g32, g32_p), "serve fp32: greedy tokens differ "
-         f"between the kernel and the plain path "
-         f"({int((g32 != g32_p).sum())} of {g32.size})")
-    del model32, logit_k, logit_p
+        # fp32 at the same widths: the kernel path against the plain path.
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = T.init_params(cfg32, seed=seed, device=dev)
+        logit_k, cache = T.prefill(model32, cfg32, tokens)
+        del cache
+        logit_p, cache = T.prefill(model32, cfg32, tokens, backend="plain")
+        del cache
+        need(bool(torch.isfinite(logit_k).all().item()),
+             "serve fp32: prefill logits not finite")
+        logit_err = (logit_k - logit_p).abs().max().item()
+        need(logit_err < 1e-3, f"serve fp32: prefill logits kernel vs plain "
+                               f"{logit_err}")
+        t32 = {}
+        g32 = serve_greedy(cfg32, prompts, new, model=model32, device=dev,
+                           timings=t32, log_fn=say)
+        g32_p = serve_greedy(cfg32, prompts, new, model=model32, device=dev,
+                             backend="plain", log_fn=_quiet)
+        need(np.array_equal(g32, g32_p), "serve fp32: greedy tokens differ "
+             f"between the kernel and the plain path "
+             f"({int((g32 != g32_p).sum())} of {g32.size})")
+        del model32, logit_k, logit_p
     torch.cuda.empty_cache()
     say(f"phase serve: qwen1.5-0.5b ({n_params} params, bf16) {B} x {S} "
         f"prompt + {new} new: prefill {timings['prefill_s'] * 1e3:.3f} ms, "
@@ -1307,6 +1335,321 @@ def phase_retrieval(dev, counters, seed) -> dict:
                 "top100_value_err": val_err, "recount_err": rec_err,
                 "serve_p99": {"batch": n_p99, "walls_s": walls99,
                               "launches": launches99, "err": u_err}}}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: training (the LM trainer and the two-tower loss)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 10
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+# examples/train_lm.py's model: the qwen1.5 architecture at ~14M params.
+QWEN_MINI = dict(name="qwen1.5-mini", n_layers=4, d_model=256, n_heads=8,
+                 n_kv_heads=8, d_head=32, d_ff=704, vocab_size=8192,
+                 dtype="float32", remat="none", attn_chunk=128)
+TWOTOWER_TRAIN_BATCH = 16_384       # train_batch's 65,536, cut (PERF.md §4)
+
+
+def _lm_params(cfg) -> int:
+    """Parameters of a dense LMConfig (the JAX ``param_count``)."""
+    d, H, KH, Dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    layer = 2 * d + d * H * Dh + 2 * d * KH * Dh + H * Dh * d + 3 * d * f
+    if cfg.qkv_bias:
+        layer += (H + 2 * KH) * Dh
+    heads = 1 if cfg.tie_embeddings else 2
+    return cfg.n_layers * layer + heads * cfg.padded_vocab * d + d
+
+
+def _train_run(dev, counters, cfg, **kw):
+    """``train_lm`` on the card with a log line every step: (result,
+    per-step seconds (from one log line to the next, each after a device
+    sync; the first from the call, model init included), peak bytes,
+    wall).  Nothing of the LM path is a kernel of
+    the port: attention is the chunked softmax, as in the JAX trainer."""
+    import torch
+    from repro_torch.launch.train import train_lm
+
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def run():
+        stamps.append(time.perf_counter())
+        return train_lm(cfg, device=dev, log_every=1,
+                        log_fn=lambda line: stamps.append(
+                            time.perf_counter()), **kw)
+
+    out, wall, launches = _launches(counters, run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    need(not any(launches.values()), f"train {cfg.name}: the LM path "
+         f"launched a kernel of the port ({launches})")
+    losses = [l for _, l in out["history"]]
+    need(len(losses) == kw["steps"] and np.isfinite(losses).all(),
+         f"train {cfg.name}: losses {losses}")
+    return out, np.diff(stamps), peak, wall
+
+
+def phase_train(dev, counters, seed, smi_line, trace_dir) -> dict:
+    """Training on the card (PERF.md §4's cells (a)-(f)); every run with
+    the launch counts set to 0 just before.
+
+    (a) qwen1.5-0.5b at full width through ``train_lm`` with the JAX
+    ``main``'s settings (fp32, remat none, AdamW, batch 8 x 256, lr 3e-3,
+    10 steps, weights from ``--seed``): finite losses, falling; step ms,
+    tokens/s, peak memory, TFLOP/s.  (b) the same widths at 2 layers,
+    batch 2 x 128: one step on the card and one on the CPU from the same
+    weights, loss and grad norm within 1e-4 relative (TF32 off).  (c) the
+    config as configured (bf16, remat "dots", then "full") at train_4k's
+    seq 4096, batch 8 in 8 microbatches.  (d) examples/train_lm.py's
+    recipe (qwen1.5-mini, 200 steps, a checkpoint every 50), then a
+    restart from step 100 whose losses equal the uninterrupted run's
+    within 1e-4 relative.  (e) granite-3-8b at 4 layers (fp32, AdamW, 2
+    steps) and command-r-plus-104b at 1 layer (fp32, Adafactor, 1 step),
+    every width kept.  (f) two-tower-retrieval at full size,
+    ``make_train_step(twotower_loss)`` with AdamW, 3 steps of 16,384: the
+    EmbeddingBag kernel launched every step, the user tower bit-equal to
+    the plain path, the item table's gradient within 1e-6 of the plain
+    autograd gradient's largest entry."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.data.recsys_data import twotower_batch
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models import weights as W
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_step import make_train_step
+
+    out = {"card": smi_line}
+    qwen = get_arch("qwen1.5-0.5b").config_fn()
+
+    # (a) full width, the JAX main's settings.
+    cfg = dataclasses.replace(qwen, dtype="float32", remat="none")
+    n_params = _lm_params(cfg)
+    res, steps_s, peak, wall = _train_run(
+        dev, counters, cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, lr=3e-3, seed=seed)
+    losses = [l for _, l in res["history"]]
+    need(losses[-1] < losses[0], f"train (a): loss did not fall {losses}")
+    step_ms = float(np.median(steps_s[2:])) * 1e3          # steps 3-10
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tflops = 6 * n_params * tokens / (step_ms * 1e-3) / 1e12
+    say(f"train (a) qwen1.5-0.5b fp32 full width ({n_params} params), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, AdamW, {TRAIN_STEPS} steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    say(f"train (a) median step over steps 3-10: {step_ms:.3f} ms")
+    say(f"train (a) tokens/s: {tokens / (step_ms * 1e-3):.1f}")
+    say(f"train (a) torch.cuda.max_memory_allocated: {peak} B "
+        f"({peak / 1e9:.3f} GB)")
+    say(f"train (a) achieved {tflops:.2f} TFLOP/s (6 x params x tokens / "
+        f"step) against the {PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s fp32 "
+        f"non-tensor peak: {tflops / (PEAK_OPS_PER_S / 1e12):.3f}")
+    out["a"] = {"params": n_params, "losses": losses,
+                "step_s": steps_s.tolist(), "median_step_ms": step_ms,
+                "tokens_per_s": tokens / (step_ms * 1e-3), "tflops": tflops,
+                "peak_alloc_bytes": peak, "wall_s": wall,
+                "final": res["final"]}
+    if trace_dir:
+        out["a"]["profile"] = profile_path(
+            "train_path", lambda: train_lm(
+                cfg, steps=3, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, lr=3e-3,
+                seed=seed, device=dev, log_fn=_quiet), trace_dir)
+    torch.cuda.empty_cache()
+
+    # (b) card against the CPU, 2 layers at full width.
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    tree = W.lm_to_numpy(T.init_params(cfg2, seed=seed, device="cpu"))
+    runs = {}
+    for where in (dev, "cpu"):
+        logs = []
+        t0 = time.perf_counter()
+        runs[str(where)] = train_lm(cfg2, steps=1, batch=2, seq_len=128,
+                                    lr=3e-3, seed=seed, device=where,
+                                    params=tree, log_fn=logs.append)
+        runs[str(where) + "_s"] = time.perf_counter() - t0
+    card, cpu = runs[str(dev)]["final"], runs["cpu"]["final"]
+    errs = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+            for k in ("loss", "grad_norm")}
+    need(max(errs.values()) <= 1e-4, f"train (b): card vs CPU {card} / "
+                                     f"{cpu}")
+    say(f"train (b) 2 layers at full width, 2 x 128, one step: card loss "
+        f"{card['loss']!r} gnorm {card['grad_norm']!r}, CPU loss "
+        f"{cpu['loss']!r} gnorm {cpu['grad_norm']!r}; relative errors "
+        f"{errs}")
+    out["b"] = {"card": card, "cpu": cpu, "rel_err": errs,
+                "card_s": runs[str(dev) + "_s"], "cpu_s": runs["cpu_s"]}
+    del tree
+
+    # (c) as configured, at train_4k's sequence, global batch cut to 8.
+    out["c"] = {}
+    for remat in ("dots", "full"):
+        cfg4k = dataclasses.replace(qwen, remat=remat)
+        res, steps_s, peak, wall = _train_run(
+            dev, counters, cfg4k, steps=2, batch=8, seq_len=4096,
+            n_microbatches=8, lr=3e-3, seed=seed)
+        say(f"train (c) qwen1.5-0.5b bf16 remat={remat}, 8 x 4096 in 8 "
+            f"microbatches: losses {[l for _, l in res['history']]}, "
+            f"second step {steps_s[1] * 1e3:.3f} ms, peak {peak} B "
+            f"({peak / 1e9:.3f} GB)")
+        out["c"][remat] = {"losses": [l for _, l in res["history"]],
+                           "step_s": steps_s.tolist(),
+                           "peak_alloc_bytes": peak, "wall_s": wall}
+        torch.cuda.empty_cache()
+
+    # (d) the example's recipe, then a restart from step 100.
+    mini = dataclasses.replace(qwen, **QWEN_MINI)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        kw = dict(steps=200, batch=8, seq_len=128, lr=3e-3, seed=seed,
+                  ckpt_dir=tmp, ckpt_every=50, log_fn=_quiet)
+        first, wall, launches = _launches(
+            counters, lambda: train_lm(mini, device=dev, **kw))
+        need(not any(launches.values()), f"train (d): {launches}")
+        hist = dict(first["history"])
+        need(hist[200] < hist[10], f"train (d): loss did not fall {hist}")
+        kept = sorted(os.listdir(tmp))
+        for step in (150, 200):
+            shutil.rmtree(os.path.join(tmp, f"step-{step:08d}"))
+        logs = []
+        again, wall2, _ = _launches(counters, lambda: train_lm(
+            mini, device=dev, resume=True, **{**kw, "log_fn": logs.append}))
+        need(logs[0].startswith("[resume] restored step 100"),
+             f"train (d): {logs[0]}")
+        errs = [abs(l - hist[s]) / abs(hist[s]) for s, l in
+                again["history"]]
+        need([s for s, _ in again["history"]] == list(range(110, 201, 10))
+             and max(errs) <= 1e-4, f"train (d): resumed losses "
+             f"{again['history']} vs {hist}")
+        model = T.init_params(mini, seed=seed, device=dev, trainable=True)
+        leaves = W.lm_leaves(model)
+        state = {"params": W.leaves_to_tree(leaves),
+                 "opt": opt_init(leaves, OptConfig()).state_tree()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, 999, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restore_checkpoint(tmp, state, step=999)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"train (d) qwen1.5-mini, 8 x 128, 200 steps with a checkpoint every "
+        f"50 (kept {kept}): loss {hist[10]:.4f} (step 10) -> "
+        f"{hist[200]:.4f}; restart from 100: steps 110-200 within "
+        f"{max(errs):.3g} relative; walls {wall:.2f} s / {wall2:.2f} s; "
+        f"checkpoint save {save_s:.4f} s, restore {restore_s:.4f} s")
+    out["d"] = {"history": first["history"], "resumed": again["history"],
+                "max_rel_err": max(errs), "wall_s": wall,
+                "resume_wall_s": wall2, "save_s": save_s,
+                "restore_s": restore_s}
+    del model, leaves, state
+
+    # (e) the two new configs, cut in depth only.
+    granite = dataclasses.replace(get_arch("granite-3-8b").config_fn(),
+                                  n_layers=4, dtype="float32", remat="none")
+    res, steps_s, peak, wall = _train_run(
+        dev, counters, granite, steps=2, batch=8, seq_len=256, lr=3e-3,
+        seed=seed)
+    say(f"train (e) granite-3-8b at 4 of 40 layers ({_lm_params(granite)} "
+        f"params, fp32, AdamW), 8 x 256: losses "
+        f"{[l for _, l in res['history']]}, second step "
+        f"{steps_s[1] * 1e3:.3f} ms, peak {peak} B ({peak / 1e9:.3f} GB)")
+    out["e"] = {"granite": {"params": _lm_params(granite),
+                            "losses": [l for _, l in res["history"]],
+                            "step_s": steps_s.tolist(),
+                            "peak_alloc_bytes": peak}}
+    torch.cuda.empty_cache()
+    cr = dataclasses.replace(get_arch("command-r-plus-104b").config_fn(),
+                             n_layers=1, dtype="float32", remat="none")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = T.init_params(cr, seed=seed, device=dev, trainable=True)
+    opt = opt_init(W.lm_leaves(model), OptConfig(
+        kind="adafactor", lr=3e-3, warmup_steps=0, decay_steps=1))
+    step = make_train_step(lambda b: T.loss_fn(model, cr, b["tokens"],
+                                               b["labels"]), opt)
+    toks, labs = SyntheticLM(LMDataConfig(cr.vocab_size, 8, 256,
+                                          seed=seed)).batch(0)
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             "labels": torch.from_numpy(labs).to(dev)}
+    m, wall, launches = _launches(counters, lambda: step(batch))
+    cr_loss = float(m["loss"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    need(np.isfinite(cr_loss) and not any(launches.values()),
+         f"train (e) command-r: loss {cr_loss}, launches {launches}")
+    say(f"train (e) command-r-plus-104b at 1 of 64 layers "
+        f"({_lm_params(cr)} params, fp32, Adafactor), 8 x 256, one step "
+        f"(the first, set-up included): loss {cr_loss:.4f}, grad norm "
+        f"{float(m['grad_norm']):.4f}, {wall * 1e3:.3f} ms, peak {peak} B "
+        f"({peak / 1e9:.3f} GB)")
+    out["e"]["command_r"] = {"params": _lm_params(cr), "loss": cr_loss,
+                             "step_s": wall, "peak_alloc_bytes": peak}
+    del model, opt, step, batch, m
+    torch.cuda.empty_cache()
+
+    # (f) two-tower training with the EmbeddingBag kernel on the path.
+    tcfg = get_arch("two-tower-retrieval").config_fn()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tt = R.twotower_init(tcfg, seed=seed, device=dev, trainable=True)
+    opt = opt_init(W.twotower_leaves(tt), OptConfig(
+        lr=1e-3, warmup_steps=0, decay_steps=3))
+    b = twotower_batch(seed, TWOTOWER_TRAIN_BATCH, tcfg.n_users,
+                       tcfg.n_items, tcfg.n_user_hist)
+    keys = ("user_id", "hist_ids", "hist_mask", "pos_item", "item_logq")
+    args = [torch.from_numpy(b[k]).to(dev) for k in keys]
+
+    def loss_fn(_batch, backend="auto"):
+        return R.twotower_loss(tt, tcfg, *args, backend=backend)
+
+    step = make_train_step(loss_fn, opt)
+    tt_losses, tt_s = [], []
+    for i in range(3):
+        m, wall, launches = _launches(counters, lambda: step(None))
+        need(launches["embedding_bag"] >= 1, f"train (f): step {i} "
+             f"launched embedding_bag {launches['embedding_bag']} times")
+        tt_losses.append(float(m["loss"]))
+        tt_s.append(wall)
+    need(np.isfinite(tt_losses).all(), f"train (f): losses {tt_losses}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    u_k = R.user_embed(tt, tcfg, *args[:3])
+    u_p = R.user_embed(tt, tcfg, *args[:3], backend="plain")
+    need(u_k.requires_grad and torch.equal(u_k, u_p),
+         "train (f): the user tower under autograd is not bit-equal to "
+         "the plain path's")
+    del u_k, u_p
+    # Both paths scatter the item tower's rows into the table with
+    # index_add_, whose CUDA atomics sum in a different order each run;
+    # the deterministic algorithms fix that order for this check, so what
+    # is compared is the bag's own gradient (its kernel-path VJP against
+    # autograd of the plain version).
+    table = tt.item_emb.table
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        g_k, = torch.autograd.grad(loss_fn(None)[0], [table])
+        g_p, = torch.autograd.grad(loss_fn(None, "plain")[0], [table])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    g_err = (g_k - g_p).abs().max().item() / g_p.abs().max().item()
+    need(g_err <= 1e-6, f"train (f): item-table gradient, kernel path vs "
+                        f"plain autograd, {g_err} of the largest entry")
+    say(f"train (f) two-tower-retrieval full size, batch "
+        f"{TWOTOWER_TRAIN_BATCH}, AdamW, 3 steps: losses {tt_losses}, step "
+        f"walls {[s * 1e3 for s in tt_s]} ms, embedding_bag launches "
+        f"{launches['embedding_bag']} a step, peak {peak} B "
+        f"({peak / 1e9:.3f} GB); user tower bit-equal to plain; item-table "
+        f"gradient within {g_err:.3g} of the largest entry")
+    out["f"] = {"losses": tt_losses, "step_s": tt_s,
+                "bag_launches_per_step": launches["embedding_bag"],
+                "peak_alloc_bytes": peak, "item_grad_rel_err": g_err}
+    del tt, opt, step, g_k, g_p, args, table
+    torch.cuda.empty_cache()
+    return {"launches": launches, "report": out}
 
 
 # ---------------------------------------------------------------------------
@@ -1924,11 +2267,14 @@ def _thr_scan(dev, time_ms, bdb, ms) -> dict:
 def phase_checked(dev) -> dict:
     """The checked build (``_build.checked()``: device asserts on every
     global index and window bound of the ES scan, the dEclat difference
-    and the N-list kernels) runs phase 1's ES and N-list sweeps once,
-    bit for bit against the plain versions; then the N-list sweeps once
-    more with the merge's adv mask in the packed form ``desc || x.pre <=
-    y.pre`` (the same predicate as the committed one), whose reading is
-    printed.  A failed assert traps its launch and fails the run."""
+    and the N-list kernels, and on the tensor-core attention's mbarrier
+    ring and TMA boxes) runs phase 1's flash sweep, each output equal to
+    the normal build's bit for bit and within its tolerance of the plain
+    version, and phase 1's ES and N-list sweeps, bit for bit against the
+    plain versions; then the N-list sweeps once more with the merge's adv
+    mask in the packed form ``desc || x.pre <= y.pre`` (the same
+    predicate as the committed one), whose reading is printed.  A failed
+    assert traps its launch and fails the run."""
     import torch
     from repro_torch.kernels import _build
 
@@ -1955,8 +2301,23 @@ def phase_checked(dev) -> dict:
         if e:
             packed["failures"].append(f"{name}: {what} (max abs err {e})")
 
+    # The flash sweep's outputs from the normal build, to hold the checked
+    # build's against bit for bit.
+    flash_normal = _flash_sweep(dev)
     t0 = time.perf_counter()
     with _build.checked() as lib:
+        flash_checked = _flash_sweep(dev)
+        torch.cuda.synchronize()
+        for case, (got, plain), (want, _) in zip(FLASH_CASES, flash_checked,
+                                                 flash_normal, strict=True):
+            tol = case[-1]
+            checks["flash_attention"] = checks.get("flash_attention", 0) + 1
+            need(torch.equal(got, want), f"checked build: flash_attention "
+                 f"differs from the normal build at {case}")
+            e = (got.float() - plain.float()).abs().max().item() \
+                if got.numel() else 0.0
+            need(e < tol, f"checked build: flash_attention vs plain {e} at "
+                          f"{case}")
         _check_scan(dev, rows, rng, agree)
         _check_thr(dev, agree)
         _check_diff(dev, rows, agree)
@@ -2335,6 +2696,16 @@ def main() -> int:
     report["timing"].update(timed("timing_slice3", phase_timing_slice3, dev,
                                   paths["serve"], paths["retrieval"],
                                   args.seed))
+    # The serving models are done with: free the card for training.
+    for name, keys in (("serve", ("model", "qkv")),
+                       ("retrieval", ("model", "run", "embed99"))):
+        for k in keys:
+            paths[name].pop(k)
+    torch.cuda.empty_cache()
+    paths["train"] = timed("train", phase_train, dev, counters, args.seed,
+                           smi_line,
+                           Path(args.profile) if args.profile else None)
+    report["train"] = paths["train"]["report"]
     # Last: a failed device assert leaves the context unusable.
     report["checked"] = timed("checked", phase_checked, dev)
     torch.cuda.synchronize()
@@ -2356,6 +2727,8 @@ def main() -> int:
             "library_ms": t["library_ms"]}
         if name in sharded:     # the sharded path's own run, counted apart
             row["launches_sharded"] = sharded[name]
+        if name == "embedding_bag":     # a two-tower train step, apart
+            row["launches_train_step"] = paths["train"]["launches"][name]
         if name == "bitmap_intersect_es":
             row["thr_ms"] = thr["ms"]
             row["thr_plain_ms"] = thr["plain_ms"]

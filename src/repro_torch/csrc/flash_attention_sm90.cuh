@@ -49,13 +49,28 @@
 //   branch of the loop (ptxas would serialize them), so the last tile's
 //   O += P V is peeled.  The two warpgroups of a CTA overlap each other too.
 // - Epilogue: divide by l, round to bf16, store rows < Sq and cols < Dv.
+//
+// The checked build (-DREPRO_CHECKED, kernels/_build.py) asserts the ring's
+// bookkeeping: tiles are loaded in order, a slot is refilled only after the
+// products of the tile it held are done, every wait and every product names
+// a tile that is still in its slot (so the wait's phase parity is that
+// tile's fill), and every TMA box starts inside its tensor's extents.
 
 #pragma once
 
+#include <cassert>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver library)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#ifndef REPRO_CHECK
+#ifdef REPRO_CHECKED
+#define REPRO_CHECK(cond) assert(cond)
+#else
+#define REPRO_CHECK(cond) ((void)0)
+#endif
+#endif
 
 namespace fa90 {
 
@@ -294,18 +309,38 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_tiles = (kv_end + kBKV - 1) / kBKV;
 
   const uint32_t bar0 = smem_u32(bars);
+#ifdef REPRO_CHECKED
+  // The ring's bookkeeping: tiles loaded so far (in order), and tiles whose
+  // O += P V this thread's warpgroup has waited for.
+  int next_load = 0, pv_done = 0;
+  // `tile` has been loaded and its slot not refilled since.
+  auto in_slot = [&](int tile) {
+    return tile >= 0 && tile < next_load && tile + kStages >= next_load;
+  };
+#endif
+  REPRO_CHECK(b < int(gridDim.x) / H && kh >= 0 && kh < KH && q0 >= 0 && q0 < Sq);
   auto load_kv = [&](int tile) {  // K and V of key tile `tile` into its ring slot
     const int slot = tile % kStages;
+    REPRO_CHECK(tile >= 0 && tile < n_tiles && slot >= 0 && slot < kStages);
+#ifdef REPRO_CHECKED
+    REPRO_CHECK(tile == next_load && (tile < kStages || tile - kStages < pv_done));
+    ++next_load;
+#endif
     __nv_bfloat16* ks = Ks + slot * kBKV * DP;
     __nv_bfloat16* vs = Vs + slot * kBKV * DVP;
     if constexpr (kTma) {
       if (threadIdx.x == 0) {
         const uint32_t bar = bar0 + 8 * slot;
+        REPRO_CHECK(tile * kBKV < Skv);
         mbar_expect_tx(bar, (DP + DVP) / kPanel * kBKV * 128);
-        for (int p = 0; p < DP / kPanel; ++p)
+        for (int p = 0; p < DP / kPanel; ++p) {
+          REPRO_CHECK(p * kPanel < D);
           tma_load(smem_u32(ks + p * kBKV * kPanel), &tm_k, bar, p * kPanel, kh, tile * kBKV, b);
-        for (int p = 0; p < DVP / kPanel; ++p)
+        }
+        for (int p = 0; p < DVP / kPanel; ++p) {
+          REPRO_CHECK(p * kPanel < Dv);
           tma_load(smem_u32(vs + p * kBKV * kPanel), &tm_v, bar, p * kPanel, kh, tile * kBKV, b);
+        }
       }
     } else {
       load_plain<kBKV, DP>(ks, k + (int64_t(b) * Skv * KH + kh) * D, int64_t(KH) * D,
@@ -317,6 +352,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   // Waits for the slot of `tile` (TMA); plain loads are visible after the next barrier.
   auto wait_kv = [&](int tile) {
+#ifdef REPRO_CHECKED
+    REPRO_CHECK(in_slot(tile));
+#endif
     if constexpr (kTma) mbar_wait(bar0 + 8 * (tile % kStages), (tile / kStages) & 1);
   };
 
@@ -329,8 +367,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       const uint32_t qbar = bar0 + 8 * kStages;
       mbar_expect_tx(qbar, DP / kPanel * kBQ * 128);
-      for (int p = 0; p < DP / kPanel; ++p)
+      for (int p = 0; p < DP / kPanel; ++p) {
+        REPRO_CHECK(p * kPanel < D);
         tma_load(smem_u32(Qs + p * kBQ * kPanel), &tm_q, qbar, p * kPanel, h, q0, b);
+      }
     }
   } else {
     load_plain<kBQ, DP>(Qs, q + (int64_t(b) * Sq * H + h) * D, int64_t(H) * D, q0, Sq, D);
@@ -350,6 +390,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // This warpgroup's 64 Q rows: 64 * 128 bytes into each panel.
   const uint32_t q_addr = smem_u32(Qs) + wg * 64 * 128;
   auto issue_s = [&](int tile) {  // S = Q K^T (64 x 128 per warpgroup), async
+#ifdef REPRO_CHECKED
+    REPRO_CHECK(in_slot(tile));
+#endif
     const uint32_t k_addr = smem_u32(Ks + (tile % kStages) * kBKV * DP);
 #pragma unroll
     for (int ks = 0; ks < DP / 16; ++ks)
@@ -357,6 +400,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_commit();
   };
   auto issue_pv = [&](int tile) {  // O += P V, async
+#ifdef REPRO_CHECKED
+    REPRO_CHECK(in_slot(tile));
+#endif
     const uint32_t v_addr = smem_u32(Vs + (tile % kStages) * kBKV * DVP);
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk) wgmma_rs<DVP>(acc, pa[kk], desc_v(v_addr, kk), 1);
@@ -435,6 +481,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_wait<0>();
     fence_regs(acc);
     fence_regs(pa);
+#ifdef REPRO_CHECKED
+    pv_done = t + 1;
+#endif
 #pragma unroll
     for (int j = 0; j < DVP / 8; ++j)
 #pragma unroll

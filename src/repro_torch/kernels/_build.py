@@ -9,11 +9,12 @@ beside them (hashed with the sources).  The library is built at first use into
 hash of the sources and flags, from the package's own sources only.
 
 A second, *checked* library can be built beside it (:func:`checked`):
-the ES-scan, dEclat-difference and N-list sources compiled with
-``-DREPRO_CHECKED``, which turns their ``REPRO_CHECK`` lines into
-device-side asserts on every global index and window bound, into
-``_build/checked-<hash>/``.  Inside ``with checked():`` the wrappers launch
-from it; a failed assert traps the launch.
+the ES-scan, dEclat-difference, N-list and flash-attention sources
+compiled with ``-DREPRO_CHECKED``, which turns their ``REPRO_CHECK``
+lines into device-side asserts on every global index and window bound
+(and, in the tensor-core attention, on its mbarrier ring and TMA
+boxes), into ``_build/checked-<hash>/``.  Inside ``with checked():``
+the wrappers launch from it; a failed assert traps the launch.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on hosts without ``nvcc``.
@@ -41,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "librepro_torch_kernels.so"
 # The checked build: its extra flags and the sources it compiles.
 CHECKED_FLAGS = ("-DREPRO_CHECKED", "-lineinfo")
-CHECKED_SOURCES = ("bitmap_diff.cu", "bitmap_intersect.cu", "nlist_merge.cu")
+CHECKED_SOURCES = ("bitmap_diff.cu", "bitmap_intersect.cu",
+                   "flash_attention.cu", "nlist_merge.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -178,9 +180,10 @@ def load(checked: "bool | None" = None) -> ctypes.CDLL:
 
 @contextmanager
 def checked() -> Iterator[ctypes.CDLL]:
-    """Launch the ES-scan, dEclat-difference and N-list kernels from the
-    checked library while the block runs (the other kernels have no
-    checked build and raise there); yields that library."""
+    """Launch the ES-scan, dEclat-difference, N-list and flash-attention
+    kernels from the checked library while the block runs (the other
+    kernels have no checked build and raise there); yields that
+    library."""
     global _use_checked
     lib = load(checked=True)
     _use_checked = True

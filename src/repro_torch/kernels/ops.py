@@ -583,7 +583,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 def embedding_bag(table: Tensor, ids: Tensor, mask: Tensor, *,
                   combiner: str = "mean", backend: str = "auto") -> Tensor:
     """Fused EmbeddingBag (``ref.embedding_bag_ref`` semantics): masked
-    sum or mean of table rows per bag, ``(B, L)`` -> ``(B, D)``."""
+    sum or mean of table rows per bag, ``(B, L)`` -> ``(B, D)``.  On CUDA
+    with a table that requires grad (training) the kernel runs under
+    ``segment_embed.EmbeddingBagFn``; otherwise the call is the kernel
+    alone (serving).  The plain version is differentiable as it stands."""
     if _use_kernel(table, backend):
+        if torch.is_grad_enabled() and table.requires_grad:
+            return _se.EmbeddingBagFn.apply(table, ids, mask, combiner)
         return _se.embedding_bag(table, ids, mask, combiner=combiner)
     return _ref.embedding_bag_ref(table, ids, mask, combiner=combiner)

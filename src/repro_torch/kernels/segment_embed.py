@@ -13,6 +13,13 @@ V)``; the kernel never reads a row outside the table.  The plain version
 for CPU tensors is ``kernels.ref.embedding_bag_ref``, chosen by
 ``kernels.ops``.  Each launch adds one to ``embedding_bag.launches``;
 launches are on ``torch.cuda.current_stream()`` and never synchronise.
+
+Under autograd (a table that requires grad, training) ``kernels.ops``
+wraps the kernel in :class:`EmbeddingBagFn`: the forward launches it,
+and the backward is :func:`embedding_bag_grad`, plain PyTorch.  That
+backward is not a port of any TPU kernel: no Pallas kernel of the JAX
+package has a backward pass, and JAX differentiates its jnp
+``embedding_bag`` (a masked gather) instead; the function is that VJP.
 """
 
 from __future__ import annotations
@@ -60,3 +67,41 @@ def embedding_bag(table: Tensor, ids: Tensor, mask: Tensor, *,
 
 
 embedding_bag.launches = 0
+
+
+def embedding_bag_grad(g: Tensor, ids: Tensor, mask: Tensor, n_rows: int,
+                       combiner: str = "mean") -> Tensor:
+    """The table's gradient of the masked sum/mean bag, as JAX
+    differentiates ``repro.models.recsys.embedding_bag``: row ``ids[b, l]``
+    gains ``g[b] / count[b] * mask[b, l]`` (``mean``; no division for
+    ``sum``), accumulated with ``index_add_`` into a dense ``(n_rows, D)``
+    table, as JAX's gradient is dense.  Masked slots add zero (their ids
+    are clamped into the table).  Plain PyTorch: CPU or CUDA tensors."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"unknown combiner {combiner!r}")
+    D = g.shape[-1]
+    m = mask.to(g.dtype)
+    if combiner == "mean":
+        g = g / torch.clamp(m.sum(dim=-1, keepdim=True), min=1.0)
+    contrib = (g[:, None, :] * m[:, :, None]).reshape(-1, D)
+    safe = ids.clamp(0, max(n_rows - 1, 0)).reshape(-1)
+    out = torch.zeros((n_rows, D), dtype=g.dtype, device=g.device)
+    return out.index_add_(0, safe, contrib)
+
+
+class EmbeddingBagFn(torch.autograd.Function):
+    """:func:`embedding_bag` (the kernel) under autograd; the backward is
+    :func:`embedding_bag_grad` (the VJP of the masked gather, no kernel)."""
+
+    @staticmethod
+    def forward(ctx, table: Tensor, ids: Tensor, mask: Tensor,
+                combiner: str) -> Tensor:
+        ctx.save_for_backward(ids, mask)
+        ctx.n_rows, ctx.combiner = table.shape[0], combiner
+        return embedding_bag(table, ids, mask, combiner=combiner)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        ids, mask = ctx.saved_tensors
+        return (embedding_bag_grad(g, ids, mask, ctx.n_rows, ctx.combiner),
+                None, None, None)

@@ -6,6 +6,9 @@ of ``repro.launch.serve``).
 Runs on the CUDA device unless ``--device cpu``; prefill attention goes
 through the Hopper flash-attention kernel there, and the decode loop
 runs under the device-purity guard: nothing in it waits for the card.
+Serving runs under ``torch.inference_mode()``: it builds no autograd
+graph, even with weights that require grad, so the in-place KV-cache
+writes never enter one.
 """
 
 from __future__ import annotations
@@ -45,20 +48,21 @@ def serve_greedy(cfg: T.LMConfig, prompts: np.ndarray, max_new: int = 16,
     if model is None:
         model = T.init_params(cfg, seed=seed, device=dev)
     B, S = prompts.shape
-    tokens = torch.as_tensor(np.asarray(prompts, np.int32)).to(dev)
-    t0 = time.perf_counter()
-    logits, cache = T.prefill(model, cfg, tokens, max_len=S + max_new,
-                              backend=backend)
-    tok = logits.argmax(-1).to(torch.int32)
-    _sync(dev)
-    t1 = time.perf_counter()
-    out = [tok]
-    with device_purity_guard():         # on CUDA a host sync here raises
-        for _ in range(max_new - 1):
-            logits, cache = T.decode_step(model, cfg, tok, cache)
-            tok = logits.argmax(-1).to(torch.int32)
-            out.append(tok)
-    gen = torch.stack(out, 1).cpu().numpy()       # waits for the device
+    with torch.inference_mode():
+        tokens = torch.as_tensor(np.asarray(prompts, np.int32)).to(dev)
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(model, cfg, tokens, max_len=S + max_new,
+                                  backend=backend)
+        tok = logits.argmax(-1).to(torch.int32)
+        _sync(dev)
+        t1 = time.perf_counter()
+        out = [tok]
+        with device_purity_guard():     # on CUDA a host sync here raises
+            for _ in range(max_new - 1):
+                logits, cache = T.decode_step(model, cfg, tok, cache)
+                tok = logits.argmax(-1).to(torch.int32)
+                out.append(tok)
+        gen = torch.stack(out, 1).cpu().numpy()   # waits for the device
     t2 = time.perf_counter()
     dt, n_dec = t2 - t0, max(max_new - 1, 1)
     stats = {"prefill_s": t1 - t0, "decode_s": t2 - t1,

@@ -1,2 +1,2 @@
 """Models of the port (counterparts of ``repro.models``): the dense LM
-stack and the two-tower retrieval model, forward only."""
+stack and the two-tower retrieval model, for serving and training."""

@@ -1,26 +1,28 @@
 """Two-tower retrieval (port of the matching subset of
-``repro.models.recsys``): the EmbeddingBag substrate, the tower MLPs and
+``repro.models.recsys``): the EmbeddingBag substrate, the tower MLPs,
 the serving functions ``user_embed``, ``item_embed`` and
-``retrieval_scores``.
+``retrieval_scores``, and the training loss ``twotower_loss``.
 
 The user tower's history bag goes through ``kernels.ops.embedding_bag``
-(the Hopper kernel on CUDA, its plain version on the CPU).  Forward
-only: parameters do not require grad.  The ``max`` combiner, the other
-recsys models, the screened retrieval and the losses wait for a later
-slice of the port (ROADMAP.md Queue 1).
+(the Hopper kernel on CUDA, its plain version on the CPU); under
+autograd the kernel runs inside its autograd rule
+(``kernels.segment_embed.EmbeddingBagFn``).  Parameters require grad
+only when built with ``trainable=True``.  The ``max`` combiner, the
+other recsys models and the screened retrieval wait for a later slice of
+the port (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers import DTYPES, _normal, _param
+from repro_torch.models.layers import DTYPES, _normal, _param, embed_lookup
 
 Tensor = torch.Tensor
 
@@ -30,19 +32,20 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 
 class Embedding(nn.Module):
-    def __init__(self, table: Tensor):
+    def __init__(self, table: Tensor, trainable: bool = False):
         super().__init__()
-        self.table = _param(table)
+        self.table = _param(table, trainable)
 
 
 def embedding_init(vocab: int, d: int, *, generator: torch.Generator,
-                   dtype=torch.float32, scale: float = 0.02) -> Embedding:
-    return Embedding(_normal((vocab, d), scale, dtype, generator))
+                   dtype=torch.float32, scale: float = 0.02,
+                   trainable: bool = False) -> Embedding:
+    return Embedding(_normal((vocab, d), scale, dtype, generator), trainable)
 
 
 def embedding_lookup(p: Embedding, ids: Tensor) -> Tensor:
     """Plain row gather; ids (...,) -> (..., D)."""
-    return p.table[ids.to(torch.int64)]
+    return embed_lookup(p.table, ids)
 
 
 def embedding_bag(p: Embedding, ids: Tensor, mask: Optional[Tensor],
@@ -64,18 +67,18 @@ def embedding_bag(p: Embedding, ids: Tensor, mask: Optional[Tensor],
 
 
 class _Linear(nn.Module):
-    def __init__(self, w: Tensor, b: Tensor):
+    def __init__(self, w: Tensor, b: Tensor, trainable: bool = False):
         super().__init__()
-        self.w, self.b = _param(w), _param(b)
+        self.w, self.b = _param(w, trainable), _param(b, trainable)
 
 
-def _mlp_init(dims: Sequence[int], dtype, *,
-              generator: torch.Generator) -> nn.ModuleList:
+def _mlp_init(dims: Sequence[int], dtype, *, generator: torch.Generator,
+              trainable: bool = False) -> nn.ModuleList:
     return nn.ModuleList(
         _Linear(_normal((dims[i], dims[i + 1]), 1.0 / dims[i] ** 0.5, dtype,
                         generator),
                 torch.zeros((dims[i + 1],), dtype=dtype,
-                            device=generator.device))
+                            device=generator.device), trainable)
         for i in range(len(dims) - 1))
 
 
@@ -120,20 +123,22 @@ class TwoTower(nn.Module):
 
 
 def twotower_init(cfg: TwoTowerConfig, seed: int = 0,
-                  device: DeviceLike = None) -> TwoTower:
+                  device: DeviceLike = None,
+                  trainable: bool = False) -> TwoTower:
     """A seeded random model on ``device`` (``None`` -> ``cuda``).  The
     user tower consumes ``[user_id_emb ; mean(history item embs)]``."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
-    dt = cfg.param_dtype
+    dt, tr = cfg.param_dtype, trainable
     user_emb = embedding_init(cfg.n_users, cfg.embed_dim, generator=g,
-                              dtype=dt)
+                              dtype=dt, trainable=tr)
     item_emb = embedding_init(cfg.n_items, cfg.embed_dim, generator=g,
-                              dtype=dt)
+                              dtype=dt, trainable=tr)
     u_dims = (2 * cfg.embed_dim,) + tuple(cfg.tower_mlp)
     i_dims = (cfg.embed_dim,) + tuple(cfg.tower_mlp)
-    return TwoTower(user_emb, item_emb, _mlp_init(u_dims, dt, generator=g),
-                    _mlp_init(i_dims, dt, generator=g))
+    return TwoTower(user_emb, item_emb,
+                    _mlp_init(u_dims, dt, generator=g, trainable=tr),
+                    _mlp_init(i_dims, dt, generator=g, trainable=tr))
 
 
 def user_embed(params: TwoTower, cfg: TwoTowerConfig, user_id: Tensor,
@@ -157,6 +162,27 @@ def item_embed(params: TwoTower, cfg: TwoTowerConfig,
 def _l2norm(z: Tensor) -> Tensor:
     n = torch.linalg.vector_norm(z.to(torch.float32), dim=-1, keepdim=True)
     return z / n.clamp_min(1e-12).to(z.dtype)
+
+
+def twotower_loss(params: TwoTower, cfg: TwoTowerConfig, user_id: Tensor,
+                  hist_ids: Tensor, hist_mask: Tensor, pos_item: Tensor,
+                  item_logq: Tensor, backend: str = "auto",
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """In-batch sampled softmax with the logQ correction (Yi et al. '19).
+
+    ``item_logq`` (B,) is the log of each positive item's sampling
+    probability (its popularity under the in-batch negatives).  Returns
+    ``(loss, {"ce", "in_batch_acc"})``."""
+    u = user_embed(params, cfg, user_id, hist_ids, hist_mask,
+                   backend=backend)                           # (B, D)
+    it = item_embed(params, cfg, pos_item)                    # (B, D)
+    logits = (u @ it.T) / cfg.temperature                     # (B, B)
+    logits = logits.to(torch.float32) - item_logq[None, :]
+    labels = torch.arange(u.shape[0], device=u.device)
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -logp.diagonal().mean()
+    acc = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
+    return loss, {"ce": loss.detach(), "in_batch_acc": acc}
 
 
 def retrieval_scores(params: TwoTower, cfg: TwoTowerConfig, user_id: Tensor,

@@ -1,28 +1,36 @@
 """Decoder-only LM, dense stack (port of the matching subset of
 ``repro.models.transformer``): ``LMConfig``, ``init_params``,
-``prefill``, ``init_cache`` and ``decode_step``.
+``forward`` and ``loss_fn`` (training), ``prefill``, ``init_cache`` and
+``decode_step`` (serving).
 
-``LMConfig`` keeps every field of the JAX config, but this slice of the
-port runs only the dense, full-attention stack (qwen1.5, granite,
-command-r): MoE, MLA and sliding windows raise ``NotImplementedError``
-and wait for a later slice (ROADMAP.md Queue 1).  The layers are an
+``LMConfig`` keeps every field of the JAX config, but the port runs
+only the dense, full-attention stack (qwen1.5, granite, command-r):
+MoE, MLA and sliding windows raise ``NotImplementedError`` and wait for
+a later slice (ROADMAP.md Queue 1).  The layers are an
 ``nn.ModuleList`` run in a Python loop where the JAX package scans a
 stacked pytree; the weights keep the JAX names and shapes, one layer per
-module (``models.weights`` unstacks a JAX tree into them).
+module (``models.weights`` stacks and unstacks them).
 
-Serve only: ``prefill`` and ``decode_step`` run forward, and
-``decode_step`` updates the KV cache **in place** (the JAX version
-returns a new one).  ``backend="plain"`` makes prefill attention take
-the flash kernel's plain version on CUDA (``chip_smoke.py`` only).
+Training (``forward``/``loss_fn``) attends through
+``layers.chunked_attention``, as the JAX trainer does, and maps
+``cfg.remat`` onto ``torch.utils.checkpoint`` per layer.  Serving
+(``prefill``/``decode_step``) runs forward under
+``torch.inference_mode()`` (``launch.serve``): prefill attention goes
+through the flash kernel, and ``decode_step`` updates the KV cache **in
+place** (the JAX version returns a new one).  ``backend="plain"`` makes
+prefill attention take the flash kernel's plain version on CUDA
+(``chip_smoke.py`` only).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -121,33 +129,140 @@ class TransformerLM(nn.Module):
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: LMConfig, seed: int = 0,
-                device: DeviceLike = None) -> TransformerLM:
+def init_params(cfg: LMConfig, seed: int = 0, device: DeviceLike = None,
+                trainable: bool = False) -> TransformerLM:
     """A seeded random model on ``device`` (``None`` -> ``cuda``), drawn
-    from one ``torch.Generator`` on that device.  The numbers differ from
-    the JAX package's for the same seed; carry JAX weights across with
+    from one ``torch.Generator`` on that device; its parameters require
+    grad when ``trainable``.  The numbers differ from the JAX package's
+    for the same seed; carry JAX weights across with
     ``models.weights.lm_from_numpy``."""
     _check_dense(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
-    dt = cfg.param_dtype
+    dt, tr = cfg.param_dtype, trainable
     embed = L.embed_init(cfg.padded_vocab, cfg.d_model, generator=g,
-                         dtype=dt)
+                         dtype=dt, trainable=tr)
     layers = []
     for _ in range(cfg.n_layers):
-        attn_norm = L.rmsnorm_init(cfg.d_model, dt, dev)
+        attn_norm = L.rmsnorm_init(cfg.d_model, dt, dev, trainable=tr)
         attn = L.gqa_init(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, generator=g, qkv_bias=cfg.qkv_bias,
-                          dtype=dt)
-        mlp_norm = L.rmsnorm_init(cfg.d_model, dt, dev)
-        mlp = L.swiglu_init(cfg.d_model, cfg.d_ff, generator=g, dtype=dt)
+                          dtype=dt, trainable=tr)
+        mlp_norm = L.rmsnorm_init(cfg.d_model, dt, dev, trainable=tr)
+        mlp = L.swiglu_init(cfg.d_model, cfg.d_ff, generator=g, dtype=dt,
+                            trainable=tr)
         layers.append(DecoderLayer(attn_norm, attn, mlp_norm, mlp))
-    final_norm = L.rmsnorm_init(cfg.d_model, dt, dev)
+    final_norm = L.rmsnorm_init(cfg.d_model, dt, dev, trainable=tr)
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = L.embed_init(cfg.padded_vocab, cfg.d_model, generator=g,
-                               dtype=dt)
+                               dtype=dt, trainable=tr)
     return TransformerLM(embed, layers, final_norm, lm_head)
+
+
+# ---------------------------------------------------------------------------
+# forward / loss (training)
+# ---------------------------------------------------------------------------
+
+# The dots without batch dimensions: the JAX policy
+# ``checkpoint_dots_with_no_batch_dims`` keeps their outputs.  The
+# projections run as ``aten.mm`` (``layers._proj``); attention's batched
+# products (``aten.bmm``) are recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _layer_fwd(cfg: LMConfig, lp: DecoderLayer, x: Tensor,
+               positions: Tensor) -> Tensor:
+    h = L.rmsnorm(lp.attn_norm, x, cfg.norm_eps)
+    x = x + L.gqa_apply(lp.attn, h, positions=positions,
+                        rope_theta=cfg.rope_theta,
+                        window=cfg.sliding_window, attn_chunk=cfg.attn_chunk,
+                        compute_dtype=cfg.param_dtype, attention="chunked")
+    h = L.rmsnorm(lp.mlp_norm, x, cfg.norm_eps)
+    return x + L.swiglu(lp.mlp, h, cfg.param_dtype)
+
+
+def _remat(cfg: LMConfig, fn):
+    """``cfg.remat`` per layer: "none" keeps every activation, "full"
+    recomputes the layer in the backward pass, "dots" keeps only the
+    outputs of the dots without batch dims (the JAX policy)."""
+    if cfg.remat == "none":
+        return fn
+    # No layer draws random numbers, so no RNG state is kept for replay.
+    remat = functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                              preserve_rng_state=False)
+    if cfg.remat == "full":
+        return remat
+    if cfg.remat == "dots":
+        return functools.partial(
+            remat, context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def forward(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
+            ) -> Tuple[Tensor, Tensor]:
+    """tokens (B, S) -> (logits (B, S, Vpad) in the param dtype, MoE aux
+    loss (0: dense stacks))."""
+    _check_dense(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = L.embed_lookup(model.embed.table, tokens)
+    layer = _remat(cfg, functools.partial(_layer_fwd, cfg))
+    for lp in model.layers:
+        x = layer(lp, x, positions)
+    x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
+    dt = cfg.param_dtype
+    logits = x.to(dt) @ model.head_table().to(dt).T
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+class _ExpSum(torch.autograd.Function):
+    """``sum(exp((logits - m).float()), -1)`` for a constant ``m``,
+    saving only the logits (param dtype): the fp32 exponentials are
+    recomputed in the backward pass, so no fp32 (B, S, V) buffer outlives
+    either pass."""
+
+    @staticmethod
+    def forward(ctx, logits: Tensor, m: Tensor) -> Tensor:
+        ctx.save_for_backward(logits, m)
+        return torch.exp((logits - m).to(torch.float32)).sum(dim=-1)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        logits, m = ctx.saved_tensors
+        e = torch.exp((logits - m).to(torch.float32))
+        return (e.mul_(g[..., None])).to(logits.dtype), None
+
+
+def loss_fn(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
+            labels: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Causal LM loss; labels are next-token ids, -1 = masked.  As in the
+    JAX package: pad-vocab logits are masked to ``finfo(float32).min /
+    2``, the max is taken without gradient, lse is an fp32 exp-sum, and
+    ``ce = sum((lse - logit[label]) * valid) / max(n_valid, 1)``.
+    Metrics ``{"ce", "aux", "ppl"}`` (``aux`` = 0)."""
+    logits, aux = forward(model, cfg, tokens)
+    pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+        >= cfg.vocab_size
+    logits = logits.masked_fill(pad, torch.finfo(torch.float32).min / 2)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(_ExpSum.apply(logits, m)) + m[..., 0].to(torch.float32)
+    valid = labels >= 0
+    safe = torch.clamp(labels, min=0).to(torch.int64)
+    label_logit = torch.gather(logits, -1, safe[..., None])[..., 0].to(
+        torch.float32)
+    n_valid = torch.clamp(valid.sum(), min=1)
+    ce = ((lse - label_logit) * valid).sum() / n_valid
+    total = ce + cfg.moe_aux_weight * aux
+    ce = ce.detach()
+    return total, {"ce": ce, "aux": aux,
+                   "ppl": torch.exp(torch.clamp(ce, max=20.0))}
 
 
 # ---------------------------------------------------------------------------
@@ -177,14 +292,15 @@ def prefill(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
     _check_dense(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = model.embed.table[tokens.to(torch.int64)]
+    x = L.embed_lookup(model.embed.table, tokens)
     cache = init_cache(cfg, B, max(max_len or S, S), device=tokens.device)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp.attn_norm, x, cfg.norm_eps)
         a, (k, v) = L.gqa_apply(lp.attn, h, positions=positions,
                                 rope_theta=cfg.rope_theta,
                                 compute_dtype=cfg.param_dtype,
-                                return_kv=True, backend=backend)
+                                return_kv=True, attention="flash",
+                                backend=backend)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
         x = _mlp_block(lp, cfg, x + a)
@@ -210,7 +326,7 @@ def decode_step(model: TransformerLM, cfg: LMConfig, token: Tensor,
                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One token for every sequence: ``token (B,)`` -> fp32 logits ``(B,
     Vpad)`` and the cache, updated in place, with ``len + 1``."""
-    x = model.embed.table[token.to(torch.int64)][:, None, :]   # (B, 1, D)
+    x = L.embed_lookup(model.embed.table, token[:, None])      # (B, 1, D)
     pos = cache["len"]
     for i, lp in enumerate(model.layers):
         lcache = {"k": cache["k"][i], "v": cache["v"][i], "len": pos}

@@ -659,3 +659,89 @@ def test_sharded_dispatch_on_card_matches_plain(cuda_device):
     kernel with per-pair thresholds, then the survivors' second launch."""
     import torch_dist_ranks
     torch_dist_ranks.check_dispatch((2, 1), str(cuda_device), 300.0)
+
+
+@pytest.mark.parametrize("comb", ["sum", "mean"])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+def test_bag_autograd_rule_launches_and_matches_plain(cuda_device, comb,
+                                                      mask_dtype):
+    """Under autograd the forward launches the kernel (bit-equal to the
+    plain version) and the table's gradient equals the plain path's
+    autograd gradient; an all-masked bag adds nothing.  Both gradients
+    accumulate with atomics, so they agree to rounding, not bit for
+    bit."""
+    rng = np.random.default_rng(21)
+    table, ids, mask = _bag_inputs(rng, 3000, 64, 300, 20, cuda_device)
+    mask[0] = False                                  # an all-masked bag
+    mask = mask.to(mask_dtype)
+    g = torch.randn((300, 64), device=cuda_device)
+    grads = {}
+    for backend in ("auto", "plain"):
+        t = table.clone().requires_grad_()
+        before = embedding_bag.launches
+        out = ops.embedding_bag(t, ids, mask, combiner=comb,
+                                backend=backend)
+        assert embedding_bag.launches == before + (backend == "auto")
+        out.backward(g)
+        grads[backend] = (out.detach(), t.grad)
+    assert torch.equal(grads["auto"][0], grads["plain"][0])
+    err = (grads["auto"][1] - grads["plain"][1]).abs().max().item()
+    assert err <= 1e-6 * grads["plain"][1].abs().max().item()
+    touched = torch.zeros(3000, dtype=torch.bool, device=cuda_device)
+    touched[ids[mask.bool()].long()] = True
+    assert torch.equal(grads["auto"][1][~touched],
+                       torch.zeros_like(grads["auto"][1][~touched]))
+
+
+def test_twotower_train_step_launches_the_bag_kernel(cuda_device):
+    """``make_train_step(twotower_loss)`` on the card: one bag launch a
+    step, the loss finite and falling over a few steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys_data import twotower_batch
+    from repro_torch.models import recsys as R
+    from repro_torch.models.weights import twotower_leaves
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_arch("two-tower-retrieval").smoke_config_fn()
+    model = R.twotower_init(cfg, seed=0, device=cuda_device, trainable=True)
+    opt = opt_init(twotower_leaves(model), OptConfig(lr=1e-2,
+                                                     warmup_steps=0))
+    b = twotower_batch(0, 64, cfg.n_users, cfg.n_items, cfg.n_user_hist)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in b.items()}
+    keys = ("user_id", "hist_ids", "hist_mask", "pos_item", "item_logq")
+    step = make_train_step(lambda bt: R.twotower_loss(
+        model, cfg, *(bt[k] for k in keys)), opt)
+    losses = []
+    for _ in range(5):
+        before = embedding_bag.launches
+        losses.append(float(step(batch)["loss"]))
+        assert embedding_bag.launches == before + 1
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_train_lm_step_on_card_matches_cpu(cuda_device):
+    """Two ``train_lm`` steps at the qwen smoke config on the card (the
+    loop under the purity guard: a host sync raises) and on the CPU, from
+    the same weights and batches, TF32 off: losses, grad norms and every
+    final metric within 1e-4 relative."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.weights import lm_to_numpy
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_arch("qwen1.5-0.5b").smoke_config_fn()
+    params = lm_to_numpy(T.init_params(cfg, seed=3, device="cpu"))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        logs = []
+        out[str(dev)] = (train_lm(cfg, steps=2, batch=4, seq_len=64,
+                                  log_every=1, log_fn=logs.append,
+                                  device=dev, params=params), logs)
+    (cpu, _), (card, _) = out["cpu"], out[str(cuda_device)]
+    for (s1, a), (s2, b) in zip(card["history"], cpu["history"],
+                                strict=True):
+        assert s1 == s2 and abs(a - b) <= 1e-4 * abs(b)
+    for k, v in cpu["final"].items():
+        assert abs(card["final"][k] - v) <= 1e-4 * max(abs(v), 1e-30), k

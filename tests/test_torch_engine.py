@@ -396,7 +396,11 @@ def test_port_imports_neither_jax_nor_repro():
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "new = {'repro_torch.core.distributed', 'repro_torch.launch.mesh',\n"
         "       'repro_torch.launch.multihost',\n"
-        "       'repro_torch.launch.forcedevices'}\n"
+        "       'repro_torch.launch.forcedevices',\n"
+        "       'repro_torch.launch.train', 'repro_torch.train.optimizer',\n"
+        "       'repro_torch.train.train_step',\n"
+        "       'repro_torch.train.checkpoint', 'repro_torch.tree',\n"
+        "       'repro_torch.data.lm_data'}\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
         "sys.exit(1 if bad or len(mods) < 12 or new - set(mods) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
