@@ -22,7 +22,9 @@ before any rank is spawned, and then (TF32 off throughout):
    attention within 2e-5 (fp32, the scalar kernel) and 3e-2 (bf16, the
    tensor-core kernel) on the sweep of ``tests/test_kernels.py`` plus
    ragged lengths and Sq != Skv, and the bf16 edges again (head dims
-   16/64/128 and 6, Dv != D, one kv head, no mask, one token, S 1024); the
+   16/64/128 and 6, Dv != D, one kv head, no mask, one token, S 1024),
+   then in both types sliding windows of 1, 100, 127, 128, 129, 4096 and
+   past S at ragged S with GQA 48/8, and MLA's D 192 / Dv 128; the
    EmbeddingBag bit for bit (bool and int32 masks, an all-masked bag, the
    scalar path, 100 slots, a bag whose only valid slot is the last, 5000
    bags, a 2,000,000 x 256 table);
@@ -83,7 +85,17 @@ before any rank is spawned, and then (TF32 off throughout):
    with the EmbeddingBag kernel under its autograd rule (one launch a
    step, the user tower bit-equal to the plain path, the item table's
    gradient within 1e-6 of the plain autograd one);
-12. last, the checked build runs phase 1's flash sweep (each output equal
+12. serves the MoE archs at full width, depth cut (``phase_serve_moe``,
+   PERF.md §4): mixtral-8x22b at 8 of 56 layers, 2 x 10,000 + 32 new
+   (the flash kernel's window skip, the ring cache rolled and wrapped),
+   and deepseek-v2-236b at 5 of 60 layers, 8 x 2048 + 32 new (MLA's
+   192/128 heads through the kernel, the latent cache, shared experts);
+   each with one flash launch a layer, the decode loop under the purity
+   guard, layer 0's attention against the plain version, and the same
+   widths in fp32 at 2 layers through the kernel and the plain path
+   (equal tokens, logits within 1e-3); then times flash attention at both
+   prefill shapes beside its bound, its plain version and SDPA;
+13. last, the checked build runs phase 1's flash sweep (each output equal
    to the normal build's bit for bit) and its ES and N-list sweeps again
    (a failed device assert traps and fails the run), then the N-list
    sweeps with the merge's adv mask in its packed form, whose reading is
@@ -266,35 +278,59 @@ FLASH_CASES = (
     (1, 1024, 1024, 16, 16, 64, 64, True, "bfloat16", 3e-2),
     (1, 300, 300, 4, 2, 6, 10, True, "bfloat16", 3e-2),
 )
+# B, S, H, KH, D, Dv, window (causal, Sq = Skv = S), each in fp32 (2e-5)
+# and bf16 (3e-2): sliding windows of 1, 100, 127, 128 (a row whose first
+# loaded key tile it cannot see), 129, 4096 (mixtral's, at S 5000: tiles
+# skipped on the left) and past S, at ragged S with mixtral's GQA 48/8 at
+# D 128; then MLA's expanded heads, D 192 / Dv 128 with one kv head per
+# query head (deepseek-v2's shape; the two-slot ring), with a window too.
+FLASH_WINDOW_CASES = (
+    (2, 1000, 48, 8, 128, 128, 1), (1, 1000, 48, 8, 128, 128, 100),
+    (1, 1000, 48, 8, 128, 128, 127), (1, 1000, 48, 8, 128, 128, 128),
+    (1, 1000, 48, 8, 128, 128, 129), (1, 5000, 48, 8, 128, 128, 4096),
+    (1, 1000, 48, 8, 128, 128, 6000), (1, 777, 4, 2, 64, 64, 300),
+    (2, 300, 4, 4, 192, 128, 0), (1, 1000, 16, 16, 192, 128, 0),
+    (1, 1000, 8, 8, 192, 128, 300), (1, 333, 4, 4, 190, 72, 64),
+)
+
+
+def _flash_cases() -> list:
+    """Every case of the flash sweep: (B, Sq, Skv, H, KH, D, Dv, causal,
+    window, dtype, tolerance)."""
+    return ([(B, Sq, Skv, H, KH, D, Dv, causal, 0, dt, tol)
+             for B, Sq, Skv, H, KH, D, Dv, causal, dt, tol in FLASH_CASES]
+            + [(B, S, S, H, KH, D, Dv, True, w, dt, tol)
+               for dt, tol in (("float32", 2e-5), ("bfloat16", 3e-2))
+               for B, S, H, KH, D, Dv, w in FLASH_WINDOW_CASES])
 
 
 def _flash_sweep(dev) -> list:
-    """(kernel, plain) outputs of flash_attention over ``FLASH_CASES``,
+    """(kernel, plain) outputs of flash_attention over ``_flash_cases()``,
     the inputs drawn from one seeded generator."""
     import torch
     from repro_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(0)
     out = []
-    for B, Sq, Skv, H, KH, D, Dv, causal, dtype, tol in FLASH_CASES:
+    for B, Sq, Skv, H, KH, D, Dv, causal, w, dtype, tol in _flash_cases():
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
                    for shape in ((B, Sq, H, D), (B, Skv, KH, D),
                                  (B, Skv, KH, Dv)))
-        out.append((ops.flash_attention(q, k, v, causal=causal),
-                    ops.flash_attention(q, k, v, causal=causal,
+        out.append((ops.flash_attention(q, k, v, causal=causal, window=w),
+                    ops.flash_attention(q, k, v, causal=causal, window=w,
                                         backend="plain")))
     return out
 
 
 def _check_flash(dev, close) -> None:
     """flash_attention against its plain version (dense fp32 softmax)."""
-    for case, (got, want) in zip(FLASH_CASES, _flash_sweep(dev),
+    for case, (got, want) in zip(_flash_cases(), _flash_sweep(dev),
                                  strict=True):
-        B, Sq, Skv, H, KH, D, Dv, causal, dtype, tol = case
+        B, Sq, Skv, H, KH, D, Dv, causal, w, dtype, tol = case
         close("flash_attention", got, want, tol,
               f"B={B} Sq={Sq} Skv={Skv} H={H} KH={KH} D={D} Dv={Dv} "
-              f"causal={causal} {dtype}")
+              f"causal={causal} window={w} {dtype}")
 
 
 def _check_bag(dev, rng, close) -> None:
@@ -1253,6 +1289,229 @@ def phase_serve(dev, counters, seed) -> dict:
                 "bf16_plain_rows_agree": rows_agree,
                 "bf16_plain_tokens_agree": tok_agree,
                 "fp32_logit_err": logit_err, "fp32": t32}}
+
+
+# The MoE serving cells (PERF.md §4): arch, layers kept, B, prompt, new
+# tokens, flash launches a prefill; then the fp32 check's layers, B,
+# prompt, new tokens.  Every width is kept; depth is cut to fit one card.
+MOE_CELLS = (
+    ("mixtral-8x22b", 8, 2, 10_000, 32, 2, 1, 5000, 8),
+    ("deepseek-v2-236b", 5, 8, 2048, 32, 2, 2, 512, 8),
+)
+
+
+def _layer0_qkv(model, cfg, tokens):
+    """Layer 0's attention inputs at the prompt's shape, as prefill makes
+    them: RoPE'd GQA q/k/v, or MLA's expanded 192/128 heads."""
+    import torch
+    from repro_torch.models import layers as L
+
+    B, S = tokens.shape
+    lp = model.layers[0]
+    h = L.rmsnorm(lp.attn_norm, model.embed.table[tokens.long()],
+                  cfg.norm_eps)
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    if cfg.mla:
+        (q, k, v), _ = L.mla_qkv(lp.attn, h, cfg.mla_dims, pos,
+                                 cfg.rope_theta, cfg.param_dtype)
+        return q, k, v, (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    q, k, v = L._qkv(lp.attn, h, cfg.param_dtype)
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    return q, k, v, None
+
+
+def phase_serve_moe(dev, counters, seed, trace_dir=None) -> dict:
+    """The MoE archs at full width (bf16, seeded random weights), depth
+    cut: mixtral-8x22b at 8 of 56 layers, 2 prompts of 10,000 tokens (past
+    its 4096 window: the kernel skips key tiles, prefill rolls the ring by
+    1808, decode wraps it) + 32 new; deepseek-v2-236b at 5 of 60 layers
+    (first_k_dense 1 + 4 MoE), 8 x 2048 + 32 (MLA's 192/128 heads through
+    the kernel).  Each: one flash launch a layer per prefill, the decode
+    loop under the purity guard (``serve_greedy``), layer 0's attention
+    at the prompt's shape against the plain version; then the same widths
+    in fp32 at 2 layers, through the kernel and the plain path (equal
+    greedy tokens, prefill logits within 1e-3).  ``trace_dir``
+    (``--profile``) adds one profiled serve run of each cell."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_greedy
+    from repro_torch.models import transformer as T
+
+    out = {"report": {}, "launches": {}, "qkv": {}, "profile": {}}
+    for (arch, n_layers, B, S, new, n32, B32, S32, new32) in MOE_CELLS:
+        cfg = dataclasses.replace(get_arch(arch).config_fn(),
+                                  n_layers=n_layers)
+        prompts = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        serve_greedy(cfg, prompts[:, :256], 2, model=model, device=dev,
+                     log_fn=_quiet)                      # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings = {}
+
+        def run():
+            return serve_greedy(cfg, prompts, new, model=model, device=dev,
+                                timings=timings, log_fn=say)
+
+        gen, wall, launches = _launches(counters, run)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if trace_dir is not None:
+            out["profile"][arch] = profile_path(
+                f"serve_{arch}", lambda: serve_greedy(
+                    cfg, prompts, new, model=model, device=dev,
+                    log_fn=_quiet), trace_dir)
+        need(launches["flash_attention"] == n_layers,
+             f"serve {arch}: prefill launched flash_attention "
+             f"{launches['flash_attention']} times, not {n_layers}")
+        need(gen.shape == (B, new) and gen.min() >= 0
+             and gen.max() < cfg.padded_vocab,
+             f"serve {arch}: bad tokens {gen.shape}")
+        with torch.inference_mode():
+            tokens = torch.from_numpy(prompts).to(dev)
+            q, k, v, scale = _layer0_qkv(model, cfg, tokens)
+            w = cfg.sliding_window
+            o_k = ops.flash_attention(q, k, v, window=w, softmax_scale=scale)
+            o_p = ops.flash_attention(q, k, v, window=w, softmax_scale=scale,
+                                      backend="plain")
+            need(bool(torch.isfinite(o_k.float()).all().item()),
+                 f"serve {arch}: layer-0 attention not finite")
+            attn_err = (o_k.float() - o_p.float()).abs().max().item()
+            need(attn_err < 3e-2, f"serve {arch}: layer-0 attention at "
+                 f"{tuple(q.shape)} disagrees with its plain version "
+                 f"({attn_err})")
+            del o_k, o_p, tokens
+        out["qkv"][arch] = (q, k, v, scale, w)
+        del model
+        torch.cuda.empty_cache()
+
+        # fp32 at the same widths, 2 layers: the kernel path against the
+        # plain path.
+        cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=n32)
+        model32 = T.init_params(cfg32, seed=seed, device=dev)
+        p32 = np.random.default_rng(seed + 1).integers(
+            0, cfg.vocab_size, (B32, S32)).astype(np.int32)
+        with torch.inference_mode():
+            tokens = torch.from_numpy(p32).to(dev)
+            logit_k, cache = T.prefill(model32, cfg32, tokens)
+            del cache
+            logit_p, cache = T.prefill(model32, cfg32, tokens,
+                                       backend="plain")
+            del cache
+            need(bool(torch.isfinite(logit_k).all().item()),
+                 f"serve {arch} fp32: prefill logits not finite")
+            logit_err = (logit_k - logit_p).abs().max().item()
+            need(logit_err < 1e-3, f"serve {arch} fp32: prefill logits "
+                                   f"kernel vs plain {logit_err}")
+            t32 = {}
+            g32 = serve_greedy(cfg32, p32, new32, model=model32, device=dev,
+                               timings=t32, log_fn=_quiet)
+            g32_p = serve_greedy(cfg32, p32, new32, model=model32,
+                                 device=dev, backend="plain", log_fn=_quiet)
+            need(np.array_equal(g32, g32_p), f"serve {arch} fp32: greedy "
+                 f"tokens differ between the kernel and the plain path "
+                 f"({int((g32 != g32_p).sum())} of {g32.size})")
+            del model32, logit_k, logit_p, tokens
+        torch.cuda.empty_cache()
+        say(f"phase serve_moe: {arch} at {n_layers} layers ({n_params} "
+            f"params, bf16, init {init_s:.2f} s) {B} x {S} prompt + {new} "
+            f"new: prefill {timings['prefill_s'] * 1e3:.3f} ms, decode "
+            f"{timings['decode_ms_per_token']:.4f} ms/token, "
+            f"{timings['tokens_per_s']:.2f} tok/s, peak {peak_gb:.2f} GB, "
+            f"flash launches {launches['flash_attention']}; layer-0 "
+            f"attention {tuple(q.shape)} window {w} err {attn_err}; fp32 at "
+            f"{n32} layers, {B32} x {S32} + {new32}: logits err "
+            f"{logit_err}, tokens equal, prefill "
+            f"{t32['prefill_s'] * 1e3:.3f} ms")
+        out["launches"][arch] = launches
+        out["report"][arch] = {
+            "layers": n_layers, "params": n_params, "batch": B,
+            "prompt": S, "new_tokens": new, "init_s": init_s,
+            "wall_s": wall, **timings, "peak_alloc_gb": peak_gb,
+            "launches": launches, "layer0_attn_err": attn_err,
+            "layer0_shape": list(q.shape) + [v.shape[-1]], "window": w,
+            "fp32": dict(t32, layers=n32, batch=B32, prompt=S32,
+                         new_tokens=new32, logit_err=logit_err)}
+    return out
+
+
+def phase_timing_moe(dev, moe) -> dict:
+    """flash_attention at the MoE cells' prefill shapes (layer 0's own q,
+    k, v): mixtral's B 2, S 10,000, H 48 over 8 kv heads, D 128, window
+    4096; deepseek-v2's B 8, S 2048, H 128, D 192 / Dv 128, causal.  The
+    bound counts the bf16 products over the unmasked (query, key) pairs
+    only.  Beside each, ``F.scaled_dot_product_attention`` (which the
+    port never calls) on kv heads repeated to H: with an explicit
+    boolean window mask for mixtral, ``is_causal`` for 192/128 (none
+    where no backend takes the shape)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    time_ms = _timer(dev)
+    out = {}
+    for arch, (q, k, v, scale, w) in moe["qkv"].items():
+        B, S, H, D = q.shape
+        KH, Dv = v.shape[2], v.shape[3]
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, window=w,
+                                                 softmax_scale=scale), 10)
+        plain_ms = time_ms(lambda: ops.flash_attention(
+            q, k, v, window=w, softmax_scale=scale, backend="plain"), 1)
+        i = torch.arange(S, device=dev)
+        pairs = int(((i + 1).clamp(max=w) if w else i + 1).sum().item())
+        flops = 2 * B * H * pairs * (D + Dv)
+        nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * Dv) * 2
+        bound, by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kt = kt.repeat_interleave(H // KH, dim=1)
+        vt = vt.repeat_interleave(H // KH, dim=1)
+        if w:
+            keep = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=keep,
+                                                      scale=scale)
+        else:
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True,
+                                                      scale=scale)
+        try:
+            lib_out = sdpa()
+        except RuntimeError as e:        # the yardstick only: no backend
+            lib_ms, lib_err, lib_note = None, None, str(e).splitlines()[0]
+        else:
+            lib_err = (lib_out.transpose(1, 2).float() - ops.flash_attention(
+                q, k, v, window=w, softmax_scale=scale).float()
+            ).abs().max().item()
+            del lib_out
+            need(lib_err < 3e-2, f"flash_attention {arch} disagrees with "
+                                 f"SDPA ({lib_err})")
+            lib_ms, lib_note = time_ms(sdpa, 5), "F.scaled_dot_product_attention"
+        tflops = flops / (ms * 1e-3) / 1e12
+        say(f"timing flash_attention {arch} (B {B} S {S} H {H} KH {KH} D "
+            f"{D} Dv {Dv} window {w} bf16, causal, {pairs} pairs a head): "
+            f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, library {lib_ms} ms ({lib_note}), bound "
+            f"{bound:.4f} ms ({by}: {nbytes} B, {flops} flops); kernel vs "
+            f"library {lib_err}")
+        out[arch] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms,
+                     "library": lib_note, "vs_library_err": lib_err,
+                     "tflops": tflops, "shape": [B, S, H, KH, D, Dv, w],
+                     "pairs": pairs, "bytes": nbytes, "ops": flops,
+                     "max_abs_err": moe["report"][arch]["layer0_attn_err"]}
+        del qt, kt, vt
+    return out
 
 
 def phase_retrieval(dev, counters, seed) -> dict:
@@ -2308,8 +2567,9 @@ def phase_checked(dev) -> dict:
     with _build.checked() as lib:
         flash_checked = _flash_sweep(dev)
         torch.cuda.synchronize()
-        for case, (got, plain), (want, _) in zip(FLASH_CASES, flash_checked,
-                                                 flash_normal, strict=True):
+        for case, (got, plain), (want, _) in zip(_flash_cases(),
+                                                 flash_checked, flash_normal,
+                                                 strict=True):
             tol = case[-1]
             checks["flash_attention"] = checks.get("flash_attention", 0) + 1
             need(torch.equal(got, want), f"checked build: flash_attention "
@@ -2706,6 +2966,19 @@ def main() -> int:
                            smi_line,
                            Path(args.profile) if args.profile else None)
     report["train"] = paths["train"]["report"]
+    torch.cuda.empty_cache()
+    paths["serve_moe"] = timed("serve_moe", phase_serve_moe, dev, counters,
+                               args.seed,
+                               Path(args.profile) if args.profile else None)
+    report["serve_moe"] = paths["serve_moe"]["report"]
+    if args.profile:
+        report.setdefault("profile", {}).update(
+            {f"serve_{k}": v for k, v in
+             paths["serve_moe"]["profile"].items()})
+    report["timing"]["flash_attention_moe"] = timed(
+        "timing_moe", phase_timing_moe, dev, paths["serve_moe"])
+    paths["serve_moe"].pop("qkv")
+    torch.cuda.empty_cache()
     # Last: a failed device assert leaves the context unusable.
     report["checked"] = timed("checked", phase_checked, dev)
     torch.cuda.synchronize()
@@ -2729,6 +3002,17 @@ def main() -> int:
             row["launches_sharded"] = sharded[name]
         if name == "embedding_bag":     # a two-tower train step, apart
             row["launches_train_step"] = paths["train"]["launches"][name]
+        if name == "flash_attention":   # the MoE cells' prefills, apart
+            moe_t = report["timing"]["flash_attention_moe"]
+            for arch, n in paths["serve_moe"]["launches"].items():
+                row[f"launches_{arch}"] = n[name]
+            row["moe_shapes"] = {
+                arch: {k: t[k] for k in ("shape", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "max_abs_err")}
+                for arch, t in moe_t.items()}
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                t["max_abs_err"] for t in moe_t.values()])
         if name == "bitmap_intersect_es":
             row["thr_ms"] = thr["ms"]
             row["thr_plain_ms"] = thr["plain_ms"]

@@ -6,11 +6,15 @@
 // (batch, query head), with the query head h reading kv head h / (H / KH).
 // The online softmax state (m, l, acc) is fp32, as in the Pallas kernel, and
 // KV tiles that lie wholly above the diagonal are skipped (the Pallas
-// kernel's `pl.when`).  Layout is the JAX package's: q (B, Sq, H, D),
-// k (B, Skv, KH, D), v (B, Skv, KH, Dv), o (B, Sq, H, Dv), all contiguous,
-// fp32 or bf16 (o in q's type).  Any Sq, Skv >= 1 and D, Dv <= 128: the
-// ragged edges of both tiles are masked here, so the Pallas kernel's
-// Sq % q_block == 0 limit does not carry over.
+// kernel's `pl.when`).  With a sliding window (window > 0, causal, the JAX
+// prefill's chunked_attention(window=...)) row i sees keys i - window < j
+// <= i: tiles wholly left of the CTA's first row's window are skipped too,
+// and the left-edge tiles are masked.  Layout is the JAX package's: q
+// (B, Sq, H, D), k (B, Skv, KH, D), v (B, Skv, KH, Dv), o (B, Sq, H, Dv),
+// all contiguous, fp32 or bf16 (o in q's type).  Any Sq, Skv >= 1, D <= 192
+// (MLA's expanded q/k heads) and Dv <= 128: the ragged edges of both tiles
+// are masked here, so the Pallas kernel's Sq % q_block == 0 limit does not
+// carry over.
 //
 // The fp32 kernel below does its products as scalar fp32 FMAs: fp32 inputs
 // are held to 2e-5 of the fp32 reference, which TF32 tensor cores would not
@@ -24,7 +28,8 @@
 // shared-memory load feeds 2-3 FMAs, and row statistics are reduced over
 // the 8 lanes that share a row with shuffles.  Row strides of Q and K are
 // padded by one float so the strided reads hit distinct banks.  Heavy (late)
-// query tiles are launched first.
+// query tiles are launched first.  Shared memory grows with D: 148 KB at
+// D 192, Dv 128 (MLA's prefill), under the block's 227 KB.
 //
 // C interface (ctypes): pointers and the stream are void*; returns
 // cudaGetLastError() after the launch.
@@ -60,7 +65,7 @@ template <int kDVP>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int H,
-                  int KH, int D, int Dv, float scale, int causal) {
+                  int KH, int D, int Dv, float scale, int causal, int window) {
   extern __shared__ float smem[];
   const int ldk = D + 1;
   float* Qs = smem;                      // kBQ x ldk
@@ -89,9 +94,11 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kDVP; ++c) acc[r][c] = 0.f;
   }
 
-  // Tiles past the last query row of this CTA are wholly masked.
+  // Tiles past the last query row of this CTA are wholly masked, and with a
+  // window so are those that end before the first row's first key.
   const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBKV) {
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / kBKV * kBKV : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBKV) {
     __syncthreads();               // the previous tile's K/V/P reads are done
     stage(Ks, ldk, k_b, int64_t(KH) * D, k0, kBKV, Skv, D, 1.f);
     stage(Vs, Dv, v_b, int64_t(KH) * Dv, k0, kBKV, Skv, Dv, 1.f);
@@ -121,20 +128,25 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
         const int key = k0 + tx + kTX * j;
-        if (key >= Skv || (causal && key > row)) s[r][j] = kNeg;
+        if (key >= Skv || (causal && key > row) || (window > 0 && row - key >= window))
+          s[r][j] = kNeg;
         mt = fmaxf(mt, s[r][j]);
       }
 #pragma unroll
       for (int off = 1; off < kTX; off <<= 1)
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      // Every row has key 0 unmasked in the first tile, so after it m is a
-      // real score and a masked entry's exp(-1e30 - m) is exactly 0.
+      // A row may have seen no visible key yet (a window's left edge, or a
+      // row past Sq): then m is still kNeg and the exponent is taken
+      // against 0, so a masked entry's exp(-1e30 - 0) is exactly 0 whatever
+      // tile comes first.  Once a real score has been seen, m is real.
       const float m_new = fmaxf(m[r], mt);
+      const float m_use = m_new > kNeg ? m_new : 0.f;
       const float corr = expf(m[r] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
-        const float p = expf(s[r][j] - m_new);
+        const float p = expf(s[r][j] - m_use);
+        REPRO_CHECK(s[r][j] > kNeg || p == 0.f);
         Ps[(ty * kRows + r) * ldp + tx + kTX * j] = p;
         sum += p;
       }
@@ -179,7 +191,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int kDVP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-                   int H, int KH, int D, int Dv, float scale, int causal, cudaStream_t stream) {
+                   int H, int KH, int D, int Dv, float scale, int causal, int window,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (size_t(kBQ) * (D + 1) + size_t(kBKV) * (D + 1) + size_t(kBKV) * Dv +
                        size_t(kBQ) * (kBKV + 1));
@@ -190,35 +203,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   fn<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                        static_cast<const float*>(v), static_cast<float*>(o), Sq,
-                                       Skv, H, KH, D, Dv, scale, causal);
+                                       Skv, H, KH, D, Dv, scale, causal, window);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                          int Skv, int H, int KH, int D, int Dv, float scale, int causal,
-                         cudaStream_t st) {
-  if (Dv <= 16) return launch<2>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
-  if (Dv <= 32) return launch<4>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
-  if (Dv <= 64) return launch<8>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
-  return launch<16>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
+                         int window, cudaStream_t st) {
+  auto* fn = Dv <= 16 ? launch<2> : Dv <= 32 ? launch<4> : Dv <= 64 ? launch<8> : launch<16>;
+  return fn(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, window, st);
 }
 
 }  // namespace
 
 // dtype: 0 = fp32 (the scalar kernel above), 1 = bf16 (the tensor-core
-// kernel, fa90::dispatch); q, k, v and o alike.  The wrapper checks shapes,
-// 1 <= Sq, Skv; 1 <= D, Dv <= 128; H % KH == 0.
+// kernel, fa90::dispatch); q, k, v and o alike.  window: 0 = none, else
+// the sliding window (causal only, Sq <= Skv, so every row sees a key).
+// The wrapper checks shapes: 1 <= Sq, Skv; 1 <= D <= 192; 1 <= Dv <= 128;
+// H % KH == 0.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                      int Sq, int Skv, int H, int KH, int D, int Dv, float scale,
-                                     int causal, int dtype, void* stream) {
+                                     int causal, int window, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D > 128 || Dv <= 0 || Dv > 128 || KH <= 0 ||
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || D <= 0 || D > 192 || Dv <= 0 || Dv > 128 || KH <= 0 ||
       H % KH != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (window < 0 || (window > 0 && (!causal || Sq > Skv)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err =
-      dtype == 1 ? fa90::dispatch(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st)
-                 : dispatch_f32(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
+      dtype == 1
+          ? fa90::dispatch(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, window, st)
+          : dispatch_f32(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, window, st);
   return static_cast<int>(err);
 }
 

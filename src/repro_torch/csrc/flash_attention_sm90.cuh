@@ -6,8 +6,11 @@
 // causal mask or none) v per (batch, query head h), head h reading kv head
 // h / (H / KH), with the online softmax state (m, l, acc) in fp32, masked
 // scores -1e30 (exactly 0 after the exponent, as there), the output divided
-// by max(l, 1e-30) and stored as bf16.  Any Sq, Skv >= 1 and D, Dv in
-// [1, 128]: head dims are zero-padded in shared memory to DP, DVP in {64, 128}.
+// by max(l, 1e-30) and stored as bf16.  A sliding window (window > 0, with
+// the causal mask: the JAX prefill's chunked_attention(window=...)) lets
+// row i see keys i - window < j <= i.  Any Sq, Skv >= 1, D in [1, 192] and
+// Dv in [1, 128]: head dims are zero-padded in shared memory to DP in {64,
+// 128, 192} (192: MLA's expanded q/k heads, 128 + 64) and DVP in {64, 128}.
 //
 // What bounds it: at prefill shapes (S 2048, D 64) the two products are
 // ~2 S^2 D flops per head against 4 S D bytes, far above the card's ridge,
@@ -17,9 +20,12 @@
 // - CTA = one (batch, head) and 128 query rows, held by two warpgroups of
 //   64 rows (wgmma's M).  The Q tile is loaded once, bf16, unscaled.  Heavy
 //   (late) query tiles of every head start first.
-// - K/V tiles of 128 keys go through a ring of three slots in shared
-//   memory, filled by TMA: one thread issues a tile's copies two tiles
-//   ahead, and an mbarrier per slot counts its bytes in.  The tensor maps
+// - K/V tiles of 128 keys go through a ring of NS slots in shared memory,
+//   filled by TMA: one thread issues a tile's copies NS - 1 tiles ahead,
+//   and an mbarrier per slot counts its bytes in.  NS is 3, or 2 at DP 192,
+//   where Q (48 KB) and three slots (240 KB) would not fit the block's
+//   227 KB: there a tile's copy is issued when its slot frees, one tile
+//   ahead of its products, and is waited for at once.  The tensor maps
 //   (4-D over (B, S, heads, dim), boxes of 64 dims x 128 rows, 128-byte
 //   swizzle, out-of-range rows and dims filled with zeros) are built on the
 //   host for each launch; cuTensorMapEncodeTiled comes through
@@ -34,10 +40,14 @@
 // - Softmax in registers, in the log2 domain: row max and row sum over the
 //   4 lanes that share a row (shuffles); with a positive scale c the max of
 //   the raw scores is taken and p = 2^(s c - m) is one FMA and one exponent.
-//   Only the diagonal tile and the ragged last key tile are masked; tiles
-//   wholly above the diagonal are never loaded (the Pallas kernel's
-//   `pl.when`).  The first tile holds key 0, visible to every row, so m is
-//   a real score after it and a masked entry's exponent is 0.
+//   Only the diagonal tile, the ragged last key tile and, with a window,
+//   the (at most two) tiles at a warpgroup's left window edge are masked;
+//   tiles wholly above the diagonal, or wholly left of the CTA's first
+//   row's window, are never loaded (the Pallas kernel's `pl.when`).  A row
+//   may see no key of the first tiles loaded (the left edge of a window),
+//   so m may still be the initial -1e30 after a tile: the exponent is then
+//   taken against 0, and a masked entry's 2^(s c - 0) is exactly 0 in both
+//   branches (s is -inf or -1e30); the checked build asserts it.
 // - O += P V: P is rounded to bf16 in registers and is wgmma's register A
 //   operand (the fp32 accumulator fragment of S is, pairwise, the bf16 A
 //   fragment of the next product); B = V from shared memory, stored
@@ -54,7 +64,8 @@
 // bookkeeping: tiles are loaded in order, a slot is refilled only after the
 // products of the tile it held are done, every wait and every product names
 // a tile that is still in its slot (so the wait's phase parity is that
-// tile's fill), and every TMA box starts inside its tensor's extents.
+// tile's fill), every TMA box starts inside its tensor's extents, and every
+// masked score's exponent is 0.
 
 #pragma once
 
@@ -77,7 +88,6 @@ namespace fa90 {
 constexpr int kBQ = 128;        // query rows per CTA (two warpgroups of 64)
 constexpr int kBKV = 128;       // keys per K/V tile
 constexpr int kThreads = 256;   // two warpgroups
-constexpr int kStages = 3;      // K/V ring: tile t (V read), t + 1 (K read), t + 2 (loading)
 constexpr int kPanel = 64;      // bf16 columns per 128-byte swizzled panel
 constexpr float kNeg = -1e30f;  // the Pallas kernel's mask value
 
@@ -279,22 +289,23 @@ __device__ __forceinline__ uint64_t desc_v(uint32_t base, int kk) {
 
 // q (B, Sq, H, D), k (B, Skv, KH, D), v (B, Skv, KH, Dv), o (B, Sq, H, Dv),
 // contiguous bf16; tm_* their tensor maps when kTma.  Grid (B * H,
-// ceil(Sq / kBQ)): blockIdx.y = 0 is the last (heaviest) query tile.
-template <int DP, int DVP, bool kTma>
+// ceil(Sq / kBQ)): blockIdx.y = 0 is the last (heaviest) query tile.  NS:
+// the K/V ring's slots (3: tile t's V read, t + 1's K read, t + 2 loading).
+template <int DP, int DVP, int NS, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int KH, int D, int Dv,
-                   float scale_log2, int causal) {
+                   float scale_log2, int causal, int window) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t bars[kStages + 1];  // K/V slots, then Q
+  __shared__ __align__(8) uint64_t bars[NS + 1];  // K/V slots, then Q
   // Swizzled panels need 1024-byte alignment (the launch adds the slack).
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(
       smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024));  // kBQ x DP
-  __nv_bfloat16* Ks = Qs + kBQ * DP;                             // kStages x kBKV x DP
-  __nv_bfloat16* Vs = Ks + kStages * kBKV * DP;                  // kStages x kBKV x DVP
+  __nv_bfloat16* Ks = Qs + kBQ * DP;                             // NS x kBKV x DP
+  __nv_bfloat16* Vs = Ks + NS * kBKV * DP;                       // NS x kBKV x DVP
 
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
@@ -304,9 +315,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // This thread's accumulator rows: row_a and row_a + 8.
   const int row_a = q0 + wg * 64 + warp * 16 + lane / 4;
 
-  // Tiles past this CTA's last query row are wholly masked: never loaded.
+  // Tiles past this CTA's last query row are wholly masked: never loaded;
+  // with a window, so are the tiles that end before its first row's first
+  // key.  Ring tile i (0 <= i < n_tiles) is key tile t_first + i.
   const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
-  const int n_tiles = (kv_end + kBKV - 1) / kBKV;
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / kBKV : 0;
+  const int n_tiles = (kv_end + kBKV - 1) / kBKV - t_first;
 
   const uint32_t bar0 = smem_u32(bars);
 #ifdef REPRO_CHECKED
@@ -315,15 +329,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   int next_load = 0, pv_done = 0;
   // `tile` has been loaded and its slot not refilled since.
   auto in_slot = [&](int tile) {
-    return tile >= 0 && tile < next_load && tile + kStages >= next_load;
+    return tile >= 0 && tile < next_load && tile + NS >= next_load;
   };
 #endif
   REPRO_CHECK(b < int(gridDim.x) / H && kh >= 0 && kh < KH && q0 >= 0 && q0 < Sq);
-  auto load_kv = [&](int tile) {  // K and V of key tile `tile` into its ring slot
-    const int slot = tile % kStages;
-    REPRO_CHECK(tile >= 0 && tile < n_tiles && slot >= 0 && slot < kStages);
+  REPRO_CHECK(n_tiles >= 1 && t_first >= 0);
+  auto load_kv = [&](int tile) {  // K and V of ring tile `tile` into its slot
+    const int slot = tile % NS, row0 = (t_first + tile) * kBKV;
+    REPRO_CHECK(tile >= 0 && tile < n_tiles && slot >= 0 && slot < NS);
 #ifdef REPRO_CHECKED
-    REPRO_CHECK(tile == next_load && (tile < kStages || tile - kStages < pv_done));
+    REPRO_CHECK(tile == next_load && (tile < NS || tile - NS < pv_done));
     ++next_load;
 #endif
     __nv_bfloat16* ks = Ks + slot * kBKV * DP;
@@ -331,22 +346,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if constexpr (kTma) {
       if (threadIdx.x == 0) {
         const uint32_t bar = bar0 + 8 * slot;
-        REPRO_CHECK(tile * kBKV < Skv);
+        REPRO_CHECK(row0 < Skv);
         mbar_expect_tx(bar, (DP + DVP) / kPanel * kBKV * 128);
         for (int p = 0; p < DP / kPanel; ++p) {
           REPRO_CHECK(p * kPanel < D);
-          tma_load(smem_u32(ks + p * kBKV * kPanel), &tm_k, bar, p * kPanel, kh, tile * kBKV, b);
+          tma_load(smem_u32(ks + p * kBKV * kPanel), &tm_k, bar, p * kPanel, kh, row0, b);
         }
         for (int p = 0; p < DVP / kPanel; ++p) {
           REPRO_CHECK(p * kPanel < Dv);
-          tma_load(smem_u32(vs + p * kBKV * kPanel), &tm_v, bar, p * kPanel, kh, tile * kBKV, b);
+          tma_load(smem_u32(vs + p * kBKV * kPanel), &tm_v, bar, p * kPanel, kh, row0, b);
         }
       }
     } else {
-      load_plain<kBKV, DP>(ks, k + (int64_t(b) * Skv * KH + kh) * D, int64_t(KH) * D,
-                           tile * kBKV, Skv, D);
-      load_plain<kBKV, DVP>(vs, v + (int64_t(b) * Skv * KH + kh) * Dv, int64_t(KH) * Dv,
-                            tile * kBKV, Skv, Dv);
+      load_plain<kBKV, DP>(ks, k + (int64_t(b) * Skv * KH + kh) * D, int64_t(KH) * D, row0, Skv,
+                           D);
+      load_plain<kBKV, DVP>(vs, v + (int64_t(b) * Skv * KH + kh) * Dv, int64_t(KH) * Dv, row0,
+                            Skv, Dv);
       fence_proxy_async();  // visible to the products after the next barrier
     }
   };
@@ -355,17 +370,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #ifdef REPRO_CHECKED
     REPRO_CHECK(in_slot(tile));
 #endif
-    if constexpr (kTma) mbar_wait(bar0 + 8 * (tile % kStages), (tile / kStages) & 1);
+    if constexpr (kTma) mbar_wait(bar0 + 8 * (tile % NS), (tile / NS) & 1);
   };
 
   if constexpr (kTma) {
     if (threadIdx.x == 0) {
-      for (int i = 0; i <= kStages; ++i) mbar_init(bar0 + 8 * i, 1);
+      for (int i = 0; i <= NS; ++i) mbar_init(bar0 + 8 * i, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-      const uint32_t qbar = bar0 + 8 * kStages;
+      const uint32_t qbar = bar0 + 8 * NS;
       mbar_expect_tx(qbar, DP / kPanel * kBQ * 128);
       for (int p = 0; p < DP / kPanel; ++p) {
         REPRO_CHECK(p * kPanel < D);
@@ -375,10 +390,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   } else {
     load_plain<kBQ, DP>(Qs, q + (int64_t(b) * Sq * H + h) * D, int64_t(H) * D, q0, Sq, D);
   }
-  load_kv(0);
-  if (n_tiles > 1) load_kv(1);
+  for (int i = 0; i < NS - 1 && i < n_tiles; ++i) load_kv(i);
   __syncthreads();  // plain loads visible
-  if constexpr (kTma) mbar_wait(bar0 + 8 * kStages, 0);
+  if constexpr (kTma) mbar_wait(bar0 + 8 * NS, 0);
 
   float acc[DVP / 2];
 #pragma unroll
@@ -393,7 +407,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #ifdef REPRO_CHECKED
     REPRO_CHECK(in_slot(tile));
 #endif
-    const uint32_t k_addr = smem_u32(Ks + (tile % kStages) * kBKV * DP);
+    const uint32_t k_addr = smem_u32(Ks + (tile % NS) * kBKV * DP);
 #pragma unroll
     for (int ks = 0; ks < DP / 16; ++ks)
       wgmma_ss<kBKV>(s, desc_k<kBQ>(q_addr, ks), desc_k<kBKV>(k_addr, ks), ks);
@@ -403,33 +417,39 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #ifdef REPRO_CHECKED
     REPRO_CHECK(in_slot(tile));
 #endif
-    const uint32_t v_addr = smem_u32(Vs + (tile % kStages) * kBKV * DVP);
+    const uint32_t v_addr = smem_u32(Vs + (tile % NS) * kBKV * DVP);
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk) wgmma_rs<DVP>(acc, pa[kk], desc_v(v_addr, kk), 1);
     wg_commit();
   };
-  // Online softmax of tile `tile` in s: s becomes p (fp32), m and l move on,
-  // corr = 2^(m_old - m_new) for the accumulators.  With a positive scale c
-  // the row max commutes with it, so the scores stay raw: masked ones are
-  // -inf, m = c max(s), p = 2^(s c - m) in one FMA.  Any other scale
-  // multiplies first and masks with -1e30.
+  // Online softmax of ring tile `tile` in s: s becomes p (fp32), m and l
+  // move on, corr = 2^(m_old - m_new) for the accumulators.  With a positive
+  // scale c the row max commutes with it, so the scores stay raw: masked
+  // ones are -inf, m = c max(s), p = 2^(s c - m) in one FMA.  Any other
+  // scale multiplies first and masks with -1e30.  A row that has seen no
+  // visible key yet has m = kNeg, and its exponent is taken against 0.
   const bool fold = scale_log2 > 0.f;
   const float c = fold ? scale_log2 : 1.f, neg = fold ? -__int_as_float(0x7f800000) : kNeg;
+  const int wg_row0 = q0 + wg * 64;  // this warpgroup's first row
+  auto masked = [&](int key, int row) {
+    return key >= Skv || (causal && key > row) || (window > 0 && row - key >= window);
+  };
   auto softmax = [&](int tile) {
-    const int kv0 = tile * kBKV;
+    const int kv0 = (t_first + tile) * kBKV;
     if (!fold)
 #pragma unroll
       for (int i = 0; i < kBKV / 2; ++i) s[i] *= scale_log2;
     // s[4j + e]: row row_a + 8 * (e >> 1), key kv0 + 8j + 2 tig + (e & 1).
-    if ((causal && kv0 + kBKV - 1 > q0 + wg * 64) || kv0 + kBKV > Skv) {
+    const bool edge = (causal && kv0 + kBKV - 1 > wg_row0) || kv0 + kBKV > Skv ||
+                      (window > 0 && wg_row0 + 63 - kv0 >= window);
+    if (edge) {
 #pragma unroll
       for (int j = 0; j < kBKV / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = kv0 + 8 * j + 2 * tig + (e & 1);
-          if (key >= Skv || (causal && key > row_a + 8 * (e >> 1))) s[4 * j + e] = neg;
-        }
+        for (int e = 0; e < 4; ++e)
+          if (masked(kv0 + 8 * j + 2 * tig + (e & 1), row_a + 8 * (e >> 1))) s[4 * j + e] = neg;
     }
+    float m_use[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mt = neg;
@@ -441,15 +461,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float m_new = fmaxf(m[r], mt * c);
       corr[r] = ex2(m[r] - m_new);
       m[r] = m_new;
+      m_use[r] = m_new > kNeg ? m_new : 0.f;
     }
     float sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < kBKV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -m[e >> 1]));
+        s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -m_use[e >> 1]));
         sum[e >> 1] += s[4 * j + e];
       }
+#ifdef REPRO_CHECKED
+    if (edge)
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          REPRO_CHECK(!masked(kv0 + 8 * j + 2 * tig + (e & 1), row_a + 8 * (e >> 1)) ||
+                      s[4 * j + e] == 0.f);
+#endif
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
   };
@@ -470,7 +500,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int t = 0; t + 1 < n_tiles; ++t) {
     pack_p();
     __syncthreads();  // tile t - 1's slot is free (and plain loads of t + 1 visible)
-    if (t + 2 < n_tiles) load_kv(t + 2);
+    if (t + NS - 1 < n_tiles) load_kv(t + NS - 1);
+    if constexpr (!kTma && NS == 2) __syncthreads();  // plain loads of t + 1 visible
     wait_kv(t + 1);
     wg_fence();
     issue_s(t + 1);
@@ -565,9 +596,10 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int DP, int DVP, bool kTma>
+template <int DP, int DVP, int NS, bool kTma>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-                   int H, int KH, int D, int Dv, float scale, int causal, cudaStream_t stream) {
+                   int H, int KH, int D, int Dv, float scale, int causal, int window,
+                   cudaStream_t stream) {
   CUtensorMap tq{}, tk{}, tv{};
   if constexpr (kTma) {
     cudaError_t err = make_map(&tq, q, B, Sq, H, D);
@@ -576,8 +608,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     if (err != cudaSuccess) return err;
   }
   const size_t smem =
-      sizeof(__nv_bfloat16) * (size_t(kBQ) * DP + kStages * size_t(kBKV) * (DP + DVP)) + 1024;
-  auto* fn = flash_wgmma_kernel<DP, DVP, kTma>;
+      sizeof(__nv_bfloat16) * (size_t(kBQ) * DP + NS * size_t(kBKV) * (DP + DVP)) + 1024;
+  auto* fn = flash_wgmma_kernel<DP, DVP, NS, kTma>;
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -585,29 +617,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   fn<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KH, D, Dv,
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, causal, window);
   return cudaGetLastError();
 }
+
+// The K/V ring's slots at head width DP: three, or two where three do not
+// fit the block's shared memory beside the Q tile.
+template <int DP, int DVP>
+constexpr int kRing = DP > 128 ? 2 : 3;
 
 template <int DP, int DVP>
 cudaError_t launch_tma(bool tma, const void* q, const void* k, const void* v, void* o, int B,
                        int Sq, int Skv, int H, int KH, int D, int Dv, float scale, int causal,
-                       cudaStream_t st) {
-  return tma ? launch<DP, DVP, true>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st)
-             : launch<DP, DVP, false>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
+                       int window, cudaStream_t st) {
+  constexpr int NS = kRing<DP, DVP>;
+  static_assert(2 * (kBQ * DP + NS * kBKV * (DP + DVP)) + 1024 <= 232448,
+                "the Q tile and the K/V ring must fit the block's shared memory");
+  return tma ? launch<DP, DVP, NS, true>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal,
+                                         window, st)
+             : launch<DP, DVP, NS, false>(q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal,
+                                          window, st);
 }
 
 // bf16 attention on the tensor cores; the caller has checked the shapes.
 inline cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                             int Skv, int H, int KH, int D, int Dv, float scale, int causal,
-                            cudaStream_t st) {
+                            int window, cudaStream_t st) {
   if ((Sq + kBQ - 1) / kBQ > 65535 || int64_t(B) * H > 0x7fffffff) return cudaErrorInvalidValue;
   // TMA needs 16-byte global strides and addresses.
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool tma = D % 8 == 0 && Dv % 8 == 0 && aligned(q) && aligned(k) && aligned(v);
-  auto* fn = D <= 64 ? (Dv <= 64 ? launch_tma<64, 64> : launch_tma<64, 128>)
-                     : (Dv <= 64 ? launch_tma<128, 64> : launch_tma<128, 128>);
-  return fn(tma, q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, st);
+  auto* fn = D <= 64    ? (Dv <= 64 ? launch_tma<64, 64> : launch_tma<64, 128>)
+             : D <= 128 ? (Dv <= 64 ? launch_tma<128, 64> : launch_tma<128, 128>)
+                        : (Dv <= 64 ? launch_tma<192, 64> : launch_tma<192, 128>);
+  return fn(tma, q, k, v, o, B, Sq, Skv, H, KH, D, Dv, scale, causal, window, st);
 }
 
 }  // namespace fa90

@@ -6,7 +6,11 @@ GQA, the online softmax in fp32, fully masked KV tiles skipped.  It
 keeps the JAX package's layout: q ``(B, Sq, H, D)``, k ``(B, Skv, KH,
 D)``, v ``(B, Skv, KH, Dv)``, output ``(B, Sq, H, Dv)`` in q's type.
 Unlike the Pallas kernel it takes any ``Sq`` and ``Skv`` (ragged tiles
-are masked in the kernel); ``D`` and ``Dv`` are at most 128.
+are masked in the kernel), ``D`` up to 192 and ``Dv`` up to 128 (MLA's
+expanded heads are 192/128), and a sliding ``window`` with the causal
+mask (the JAX prefill's ``chunked_attention(window=...)``): key tiles
+wholly left of every row's window are skipped like those above the
+diagonal.
 
 CUDA tensors only, fp32 or bf16, one kernel for each: bf16 runs on the
 tensor cores (wgmma, K/V tiles by TMA: ``csrc/flash_attention_sm90.cuh``),
@@ -24,18 +28,23 @@ from typing import Optional
 import torch
 
 from . import _build
+from .ref import check_window
 
 Tensor = torch.Tensor
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192          # q and k
+MAX_V_HEAD_DIM = 128        # v and the output
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int = 0,
                     softmax_scale: Optional[float] = None) -> Tensor:
     """Attention over ``q (B, Sq, H, D)``, ``k (B, Skv, KH, D)``, ``v (B,
     Skv, KH, Dv)``; query head ``h`` reads kv head ``h // (H // KH)``.
-    ``softmax_scale`` defaults to ``D ** -0.5``."""
+    ``window`` > 0 (with ``causal``, ``Sq <= Skv``) lets query ``i`` see
+    keys ``i - window < j <= i``.  ``softmax_scale`` defaults to ``D **
+    -0.5``."""
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError("flash_attention takes CUDA tensors on one device, "
@@ -52,11 +61,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                          f"v {tuple(v.shape)} do not agree")
     if KH == 0 or H % KH:
         raise ValueError(f"{H} query heads do not group over {KH} kv heads")
-    if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM):
+    if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_V_HEAD_DIM):
         raise ValueError(f"head dims D={D}, Dv={Dv} must be in "
-                         f"[1, {MAX_HEAD_DIM}]")
+                         f"[1, {MAX_HEAD_DIM}] and [1, {MAX_V_HEAD_DIM}]")
     if Skv == 0:
         raise ValueError("flash_attention needs at least one key")
+    check_window(Sq, Skv, causal, window)
     scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
@@ -64,7 +74,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         return out
     err = _build.load().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
-        H, KH, D, Dv, scale, int(bool(causal)), _DTYPES[q.dtype],
+        H, KH, D, Dv, scale, int(bool(causal)), min(int(window), Skv),
+        _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1

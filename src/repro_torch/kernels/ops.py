@@ -569,14 +569,16 @@ def nlist_extend(codes: Tensor, u_off, u_len, v_off, v_len, out_off, rho_v,
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    softmax_scale=None, backend: str = "auto") -> Tensor:
+                    window: int = 0, softmax_scale=None,
+                    backend: str = "auto") -> Tensor:
     """Fused causal GQA attention (``ref.flash_attention_ref`` semantics):
     q ``(B, Sq, H, D)``, k ``(B, Skv, KH, D)``, v ``(B, Skv, KH, Dv)`` ->
-    ``(B, Sq, H, Dv)`` in q's type."""
+    ``(B, Sq, H, Dv)`` in q's type; ``window`` > 0 adds the sliding-window
+    mask (query ``i`` sees keys ``i - window < j <= i``)."""
     if _use_kernel(q, backend):
-        return _fa.flash_attention(q, k, v, causal=causal,
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    softmax_scale=softmax_scale)
-    return _ref.flash_attention_ref(q, k, v, causal=causal,
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     softmax_scale=softmax_scale)
 
 

@@ -544,28 +544,57 @@ def compact_gather_ref(slab: Tensor, perm: Tensor) -> Tensor:
 # flash attention + embedding bag (``repro.kernels.ref``: 553, 571)
 # ---------------------------------------------------------------------------
 
+def check_window(Sq: int, Skv: int, causal: bool, window: int) -> None:
+    """A sliding window needs the causal mask and ``Sq <= Skv``, so that
+    every query row sees at least its own key."""
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if window and not causal:
+        raise ValueError("a sliding window needs causal=True")
+    if window and Sq > Skv:
+        raise ValueError(f"a sliding window needs Sq <= Skv (every query "
+                         f"row sees a key), got Sq={Sq}, Skv={Skv}")
+
+
+# Scores the plain attention holds at once (fp32): 2^28 is 1 GiB.
+_SCORE_BLOCK = 1 << 28
+
+
 def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
-                        causal: bool = True, softmax_scale=None) -> Tensor:
+                        causal: bool = True, window: int = 0,
+                        softmax_scale=None) -> Tensor:
     """Dense attention with an fp32 softmax, GQA by folding query heads
     into ``(KH, G)`` groups: q ``(B, Sq, H, D)``, k ``(B, Skv, KH, D)``,
     v ``(B, Skv, KH, Dv)`` -> ``(B, Sq, H, Dv)`` in q's type.  Any ``Sq``
     and ``Skv``; the causal mask is top-left aligned (query ``i`` sees
-    keys ``<= i``) and masked scores are ``-1e30``."""
+    keys ``<= i``), ``window`` > 0 also masks keys ``<= i - window`` (the
+    JAX package's ``chunked_attention(window=...)``), and masked scores
+    are ``-1e30``.  Query rows go in blocks of at most 2^28 scores, each
+    row's softmax whole."""
     B, Sq, H, D = q.shape
     _, Skv, KH, Dv = v.shape
+    check_window(Sq, Skv, causal, window)
     G = H // KH
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    qg = q.reshape(B, Sq, KH, G, D).to(torch.float32)
-    s = torch.einsum("bqkgd,bskd->bqkgs", qg, k.to(torch.float32)) * scale
-    if causal:
-        ar_q = torch.arange(Sq, device=q.device)
-        ar_k = torch.arange(Skv, device=q.device)
-        masked = ar_q[:, None] < ar_k[None, :]
-        s.masked_fill_(masked[None, :, None, None, :], -1e30)
-    a = torch.softmax(s, dim=-1)
-    del s
-    o = torch.einsum("bqkgs,bskv->bqkgv", a, v.to(torch.float32))
-    return o.reshape(B, Sq, H, Dv).to(q.dtype)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    ar_k = torch.arange(Skv, device=q.device)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    rows = max(1, _SCORE_BLOCK // max(B * H * Skv, 1))
+    for i0 in range(0, Sq, rows):
+        i1 = min(Sq, i0 + rows)
+        qg = q[:, i0:i1].reshape(B, i1 - i0, KH, G, D).to(torch.float32)
+        s = torch.einsum("bqkgd,bskd->bqkgs", qg, kf) * scale
+        if causal:
+            ar_q = torch.arange(i0, i1, device=q.device)
+            masked = ar_q[:, None] < ar_k[None, :]
+            if window:
+                masked |= (ar_q[:, None] - ar_k[None, :]) >= window
+            s.masked_fill_(masked[None, :, None, None, :], -1e30)
+        a = torch.softmax(s, dim=-1)
+        del s
+        o = torch.einsum("bqkgs,bskv->bqkgv", a, vf)
+        out[:, i0:i1] = o.reshape(B, i1 - i0, H, Dv).to(q.dtype)
+    return out
 
 
 def embedding_bag_ref(table: Tensor, ids: Tensor, mask: Tensor, *,

@@ -2,6 +2,12 @@
 of ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --device cpu     # smoke config
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v2-236b --device cpu
+
+Every LM arch of the registry serves through it: dense GQA, the
+sliding-window ring cache and MoE (mixtral), MLA's latent cache with
+MoE and shared experts (deepseek-v2); ``--arch`` takes its smoke config.
 
 Runs on the CUDA device unless ``--device cpu``; prefill attention goes
 through the Hopper flash-attention kernel there, and the decode loop

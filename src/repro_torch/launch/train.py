@@ -50,7 +50,15 @@ def train_lm(cfg: T.LMConfig, *, steps: int = 200, batch: int = 8,
     [(step, loss) at each log step], "final": last step's metrics}``.
 
     ``params`` (a JAX ``init_params`` tree, numpy or tensor leaves) sets
-    the initial weights; ``None`` draws seeded ones (``init_params``)."""
+    the initial weights; ``None`` draws seeded ones (``init_params``).
+    Dense, full-attention stacks only: MoE, MLA and sliding windows serve
+    but do not train yet (ROADMAP.md Queue 1)."""
+    for flag, what in ((cfg.moe, "MoE"), (cfg.mla, "MLA"),
+                       (cfg.sliding_window, "sliding-window attention")):
+        if flag:
+            raise NotImplementedError(
+                f"{cfg.name}: training {what} is not ported yet (ROADMAP.md "
+                "Queue 1: training for MoE, MLA and sliding windows)")
     dev = resolve_device(device)
     data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, batch=batch,
                                     seq_len=seq_len, seed=seed))

@@ -1,8 +1,9 @@
-"""Dense-attention transformer blocks (port of the matching subset of
-``repro.models.layers``): dense, RMSNorm (with the JAX package's
-hand-written VJP), token embedding, rotary embeddings, GQA attention for
-training, prefill and decode, the chunked online-softmax attention and
-the SwiGLU MLP.
+"""Transformer blocks (port of ``repro.models.layers``): dense, RMSNorm
+(with the JAX package's hand-written VJP), token embedding, rotary
+embeddings, GQA attention (full or sliding-window) for training, prefill
+and decode, the chunked online-softmax attention, DeepSeek-V2's MLA
+(expanded prefill, absorbed decode over a latent cache), the SwiGLU MLP
+and the sort-based top-k MoE with shared experts.
 
 Each ``*_init`` draws its weights from an explicit ``torch.Generator``
 (on the device the weights live on) and returns an ``nn.Module`` whose
@@ -16,22 +17,25 @@ trainers); serving builds them frozen and runs under
 ``torch.inference_mode()``.
 
 Attention takes one of two routes, chosen by the caller
-(``gqa_apply(attention=...)``): prefill goes through
+(``gqa_apply``/``mla_apply(attention=...)``): prefill goes through
 ``kernels.ops.flash_attention`` (the Hopper kernel on CUDA, its plain
-version on the CPU); training goes through :func:`chunked_attention`,
-plain differentiable torch ops, as the JAX trainer attends through its
-``chunked_attention`` (the flash kernel has no backward in either
-package).  Decode attention is plain torch ops, as the JAX package
-leaves it to XLA, and none of them syncs with the host.  Projections
-are ``torch.matmul`` over the weights viewed 2-D, so they run as
-``aten.mm`` (the dots that ``remat="dots"`` keeps).  Sliding windows,
-MLA and MoE wait for a later slice of the port (ROADMAP.md Queue 1), and
-the JAX package's sharding hints (``constrain``) have no job on one
-card.
+version on the CPU), sliding window and MLA's 192-wide heads included;
+training goes through :func:`chunked_attention`, plain differentiable
+torch ops, as the JAX trainer attends through its ``chunked_attention``
+(the flash kernel has no backward in either package).  Decode attention
+is plain torch ops, as the JAX package leaves it to XLA, and neither it
+nor the MoE dispatch syncs with the host (no boolean-mask indexing, no
+``.item()``, expert counts by ``index_add_``), so decode runs under the
+device-purity guard.  Projections are ``torch.matmul`` over the weights
+viewed 2-D, so they run as ``aten.mm`` (the dots that ``remat="dots"``
+keeps); the MoE's expert products are batched GEMMs (``torch.bmm``),
+which the JAX package leaves to XLA.  Its sharding hints (``constrain``)
+have no job on one card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -254,11 +258,8 @@ def chunked_attention(q: Tensor,            # (B, Sq, H, Dh)
     ``kv_valid_len`` (B,) masks a partially filled cache.  Masked scores
     are -1e30 and the denominator is clamped at 1e-30.  The chunk falls
     back to ``Sk`` when it does not divide ``Sk``.  A nonzero ``window``
-    (sliding-window attention) waits for ROADMAP.md Queue 1 item 14."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention is not ported to PyTorch yet "
-            "(ROADMAP.md Queue 1 item 14)")
+    adds the sliding-window mask ``q_pos - kv_pos < window``
+    (Mistral-style)."""
     B, Sq, H, Dh = q.shape
     _, Sk, KH, _ = k.shape
     Dv = v.shape[-1]
@@ -282,6 +283,8 @@ def chunked_attention(q: Tensor,            # (B, Sq, H, Dh)
         keep = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
         if causal:
             keep = keep & (q_pos[:, None] >= kv_pos[None, :])
+        if window:
+            keep = keep & ((q_pos[:, None] - kv_pos[None, :]) < window)
         if kv_valid_len is not None:
             keep = keep[None] & (kv_pos[None, None, :]
                                  < kv_valid_len[:, None, None])
@@ -299,15 +302,33 @@ def chunked_attention(q: Tensor,            # (B, Sq, H, Dh)
     return out.reshape(B, Sq, H, Dv).to(q.dtype)
 
 
+def _attend(q: Tensor, k: Tensor, v: Tensor, attention: str, *,
+            window: int = 0, chunk: int = 1024,
+            softmax_scale: Optional[float] = None,
+            backend: str = "auto") -> Tensor:
+    """Causal attention of a whole sequence by ``attention``: "chunked"
+    (:func:`chunked_attention`, differentiable) or "flash"
+    (``ops.flash_attention``: the kernel on CUDA)."""
+    if attention == "chunked":
+        return chunked_attention(q, k, v, causal=True, window=window,
+                                 chunk=chunk, softmax_scale=softmax_scale)
+    if attention == "flash":
+        return ops.flash_attention(q, k, v, causal=True, window=window,
+                                   softmax_scale=softmax_scale,
+                                   backend=backend)
+    raise ValueError(f"unknown attention {attention!r}")
+
+
 def gqa_apply(p: GQA, x: Tensor, *, positions: Tensor,
               rope_theta: float = 1e4, window: int = 0,
               attn_chunk: int = 1024, compute_dtype=torch.bfloat16,
               return_kv: bool = False, attention: str = "flash",
               backend: str = "auto"):
-    """Full-sequence causal attention for training (``attention=
-    "chunked"``: :func:`chunked_attention`, differentiable torch ops, what
-    the JAX trainer runs) or prefill (``"flash"``: ``ops.flash_attention``,
-    the Hopper kernel, which has no backward in either package).
+    """Full-sequence causal attention, sliding-window when ``window`` >
+    0, for training (``attention="chunked"``: :func:`chunked_attention`,
+    differentiable torch ops, what the JAX trainer runs) or prefill
+    (``"flash"``: ``ops.flash_attention``, the Hopper kernel, which has no
+    backward in either package).
     ``return_kv=True`` also returns the RoPE'd K and raw V, exactly what
     the decode cache stores.  ``backend="plain"`` takes the flash kernel's
     plain version on CUDA (``chip_smoke.py`` only)."""
@@ -315,17 +336,8 @@ def gqa_apply(p: GQA, x: Tensor, *, positions: Tensor,
     q, k, v = _qkv(p, x, cd)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    if attention == "chunked":
-        o = chunked_attention(q, k, v, causal=True, window=window,
-                              chunk=attn_chunk)
-    elif attention == "flash":
-        if window:
-            raise NotImplementedError(
-                "the flash kernel has no sliding window yet (ROADMAP.md "
-                "Queue 1 item 14)")
-        o = ops.flash_attention(q, k, v, causal=True, backend=backend)
-    else:
-        raise ValueError(f"unknown attention {attention!r}")
+    o = _attend(q, k, v, attention, window=window, chunk=attn_chunk,
+                backend=backend)
     y = _out(p, o, cd)
     if return_kv:
         return y, (k, v)
@@ -333,14 +345,17 @@ def gqa_apply(p: GQA, x: Tensor, *, positions: Tensor,
 
 
 def gqa_decode(p: GQA, x: Tensor, cache: Dict[str, Tensor], *,
-               rope_theta: float = 1e4, compute_dtype=torch.bfloat16,
+               rope_theta: float = 1e4, window: int = 0,
+               compute_dtype=torch.bfloat16,
                ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One decode step.  cache = {k: (B, S, KH, Dh), v: ..., len: (B,)}.
 
     The new key (post-RoPE, at its absolute position) and value go to
-    slot ``min(len, S - 1)``, written **in place** into the cache tensors
-    (the JAX version returns new buffers); the returned cache holds the
-    same tensors and ``len + 1``."""
+    slot ``min(len, S - 1)`` or, with ``window`` > 0, to ring slot ``len
+    % S`` (the cache is a ring of ``S`` = window slots; keys carry their
+    absolute positions, so slot order does not matter).  They are written
+    **in place** into the cache tensors (the JAX version returns new
+    buffers); the returned cache holds the same tensors and ``len + 1``."""
     cd = compute_dtype
     B, one, _ = x.shape
     if one != 1:
@@ -352,7 +367,7 @@ def gqa_decode(p: GQA, x: Tensor, cache: Dict[str, Tensor], *,
     k_new = apply_rope(k_new, pos[:, None], rope_theta)
 
     S = cache["k"].shape[1]
-    slot = torch.clamp(pos, max=S - 1)
+    slot = torch.remainder(pos, S) if window else torch.clamp(pos, max=S - 1)
     k_cache = _batched_set(cache["k"], k_new[:, 0], slot)
     v_cache = _batched_set(cache["v"], v_new[:, 0], slot)
     valid = torch.clamp(pos + 1, max=S)
@@ -392,6 +407,157 @@ def _batched_set(buf: Tensor, val: Tensor, idx: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLADims:
+    d_model: int
+    n_heads: int
+    q_lora: int          # 0 => no query compression
+    kv_lora: int
+    d_nope: int          # per-head non-rotary qk dim
+    d_rope: int          # per-head rotary qk dim (key side is shared)
+    d_v: int
+
+
+class MLA(nn.Module):
+    """``wq_a`` (d, q_lora), ``q_norm`` (q_lora,) and ``wq_b`` (q_lora, H,
+    d_nope + d_rope), or ``wq`` (d, H, d_nope + d_rope) without query
+    compression; ``wkv_a`` (d, kv_lora + d_rope), ``kv_norm`` (kv_lora,),
+    ``wk_b`` (kv_lora, H, d_nope), ``wv_b`` (kv_lora, H, d_v) and ``wo``
+    (H, d_v, d).  The norms are bare scale vectors, as in the JAX tree."""
+
+    def __init__(self, w: Dict[str, Tensor], trainable: bool = False):
+        super().__init__()
+        for name, t in w.items():
+            setattr(self, name, _param(t, trainable))
+        self.q_lora = "wq_a" in w
+
+
+def mla_init(dims: MLADims, *, generator: torch.Generator,
+             dtype=torch.bfloat16, trainable: bool = False) -> MLA:
+    d, H = dims.d_model, dims.n_heads
+    s = 1.0 / d ** 0.5
+    dq = dims.d_nope + dims.d_rope
+    dev = generator.device
+
+    def w(shape):
+        return _normal(shape, s, dtype, generator)
+
+    p: Dict[str, Tensor] = {}
+    if dims.q_lora:
+        p["wq_a"] = w((d, dims.q_lora))
+        p["q_norm"] = torch.ones((dims.q_lora,), dtype=dtype, device=dev)
+        p["wq_b"] = w((dims.q_lora, H, dq))
+    else:
+        p["wq"] = w((d, H, dq))
+    p["wkv_a"] = w((d, dims.kv_lora + dims.d_rope))
+    p["kv_norm"] = torch.ones((dims.kv_lora,), dtype=dtype, device=dev)
+    p["wk_b"] = w((dims.kv_lora, H, dims.d_nope))
+    p["wv_b"] = w((dims.kv_lora, H, dims.d_v))
+    p["wo"] = w((H, dims.d_v, d))
+    return MLA(p, trainable)
+
+
+def _mla_q(p: MLA, x: Tensor, dims: MLADims,
+           cd: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """(q_nope, q_rope), each (B, S, H, *).  The query latent's norm takes
+    ``rmsnorm``'s default eps (1e-5), as the JAX package's does."""
+    if p.q_lora:
+        q_c = x.to(cd) @ p.wq_a.to(cd)
+        q_c = _RMSNormFn.apply(q_c, p.q_norm, 1e-5)
+        q = _proj(q_c.to(cd), p.wq_b.to(cd))
+    else:
+        q = _proj(x.to(cd), p.wq.to(cd))
+    return q[..., :dims.d_nope], q[..., dims.d_nope:]
+
+
+def _mla_kv(p: MLA, x: Tensor, dims: MLADims, positions: Tensor,
+            rope_theta: float, cd: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """The latent cache entries: ``c_kv`` (B, S, kv_lora), normed with the
+    default eps, and the shared RoPE'd key ``k_rope`` (B, S, d_rope)."""
+    kv = x.to(cd) @ p.wkv_a.to(cd)
+    c_kv = _RMSNormFn.apply(kv[..., :dims.kv_lora], p.kv_norm, 1e-5)
+    k_rope = apply_rope(kv[..., dims.kv_lora:], positions, rope_theta)
+    return c_kv, k_rope
+
+
+def mla_qkv(p: MLA, x: Tensor, dims: MLADims, positions: Tensor,
+            rope_theta: float, cd: torch.dtype):
+    """The expanded heads ``(q, k, v)``: q and k ``(B, S, H, d_nope +
+    d_rope)`` (k's rotary part shared by the heads), v ``(B, S, H,
+    d_v)``; and the latent cache entries ``(c_kv, k_rope)``."""
+    q_nope, q_rope = _mla_q(p, x, dims, cd)
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+    c_kv, k_rope = _mla_kv(p, x, dims, positions, rope_theta, cd)
+    k_nope = _proj(c_kv.to(cd), p.wk_b.to(cd))
+    v = _proj(c_kv.to(cd), p.wv_b.to(cd))
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], dims.n_heads,
+                                            dims.d_rope)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope_h], -1)
+    return (q, k, v), (c_kv, k_rope)
+
+
+def mla_apply(p: MLA, x: Tensor, dims: MLADims, *, positions: Tensor,
+              rope_theta: float = 1e4, attn_chunk: int = 1024,
+              compute_dtype=torch.bfloat16, return_kv: bool = False,
+              attention: str = "flash", backend: str = "auto"):
+    """Training/prefill forward, the expanded formulation: per-head keys
+    ``[k_nope, k_rope]`` (d_nope + d_rope wide) and values (d_v wide),
+    causal attention at scale ``(d_nope + d_rope) ** -0.5`` by
+    ``attention`` (as :func:`gqa_apply`).  ``return_kv=True`` also returns
+    ``(c_kv, k_rope)``, the latent cache entries :func:`mla_decode` reads."""
+    cd = compute_dtype
+    (q, k, v), (c_kv, k_rope) = mla_qkv(p, x, dims, positions, rope_theta, cd)
+    scale = (dims.d_nope + dims.d_rope) ** -0.5
+    o = _attend(q, k, v, attention, chunk=attn_chunk, softmax_scale=scale,
+                backend=backend)
+    h, dv, d = p.wo.shape
+    y = o.to(cd).flatten(-2) @ p.wo.to(cd).reshape(h * dv, d)
+    if return_kv:
+        return y, (c_kv, k_rope)
+    return y
+
+
+def mla_decode(p: MLA, x: Tensor, cache: Dict[str, Tensor], dims: MLADims,
+               *, rope_theta: float = 1e4, compute_dtype=torch.bfloat16,
+               ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Absorbed-matmul decode over the latent cache ``{c_kv: (B, S,
+    kv_lora), k_rope: (B, S, d_rope), len: (B,)}``: ``wk_b`` is absorbed
+    into the query and ``wv_b`` into the output, so a step's work scales
+    with kv_lora, not heads x head dim x S (DeepSeek-V2 §2.1).  The new
+    entries go to slot ``min(len, S - 1)``, written **in place**."""
+    cd = compute_dtype
+    pos = cache["len"]
+    q_nope, q_rope = _mla_q(p, x, dims, cd)                # (B, 1, H, *)
+    q_rope = apply_rope(q_rope, pos[:, None], rope_theta)
+    c_new, kr_new = _mla_kv(p, x, dims, pos[:, None], rope_theta, cd)
+
+    S = cache["c_kv"].shape[1]
+    slot = torch.clamp(pos, max=S - 1)
+    c_kv = _batched_set(cache["c_kv"], c_new[:, 0], slot)
+    k_rope = _batched_set(cache["k_rope"], kr_new[:, 0], slot)
+    valid = torch.clamp(pos + 1, max=S)
+
+    f32 = torch.float32
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p.wk_b.to(cd))
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat.to(f32), c_kv.to(f32))
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope.to(f32), k_rope.to(f32))
+    scale = (dims.d_nope + dims.d_rope) ** -0.5
+    s = (s_lat + s_rope) * scale                           # (B, H, 1, S)
+    masked = torch.arange(S, device=x.device)[None, :] >= valid[:, None]
+    s = s.masked_fill(masked[:, None, None, :], -1e30)
+    a = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", a, c_kv.to(f32))
+    o = torch.einsum("bshr,rhk->bshk", o_lat.to(cd), p.wv_b.to(cd))
+    h, dv, d = p.wo.shape
+    y = o.flatten(-2) @ p.wo.to(cd).reshape(h * dv, d)
+    return y, {"c_kv": c_kv, "k_rope": k_rope, "len": pos + 1}
+
+
+# ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
@@ -420,3 +586,152 @@ def swiglu(p: SwiGLU, x: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
     u = xc @ p.w_up.to(cd)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(cd) * u
     return h @ p.w_down.to(cd)
+
+
+
+# ---------------------------------------------------------------------------
+# sort-based top-k MoE
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEDims:
+    d_model: int
+    n_experts: int
+    top_k: int
+    d_ff: int            # per-expert hidden
+    n_shared: int = 0    # shared experts (DeepSeek)
+    capacity_factor: float = 1.25
+    # Dispatch groups: routing, sort and scatter run independently per
+    # token group (the JAX package shards them like the batch).
+    dispatch_groups: int = 32
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) fp32, ``w_gate``/``w_up`` (E, d, f), ``w_down``
+    (E, f, d) and, with shared experts, ``shared`` (a :class:`SwiGLU` of
+    width ``n_shared * f``)."""
+
+    def __init__(self, router: Tensor, w_gate: Tensor, w_up: Tensor,
+                 w_down: Tensor, shared: Optional[SwiGLU] = None,
+                 trainable: bool = False):
+        super().__init__()
+        self.router = _param(router, trainable)
+        self.w_gate, self.w_up, self.w_down = (_param(w, trainable) for w in
+                                               (w_gate, w_up, w_down))
+        self.shared = shared
+
+
+def moe_init(dims: MoEDims, *, generator: torch.Generator,
+             dtype=torch.bfloat16, trainable: bool = False) -> MoE:
+    d, E, f = dims.d_model, dims.n_experts, dims.d_ff
+    s_in, s_out = 1.0 / d ** 0.5, 1.0 / f ** 0.5
+    router = _normal((d, E), s_in, dtype, generator).to(torch.float32)
+    w_gate = _normal((E, d, f), s_in, dtype, generator)
+    w_up = _normal((E, d, f), s_in, dtype, generator)
+    w_down = _normal((E, f, d), s_out, dtype, generator)
+    shared = None
+    if dims.n_shared:
+        shared = swiglu_init(d, dims.n_shared * f, generator=generator,
+                             dtype=dtype, trainable=trainable)
+    return MoE(router, w_gate, w_up, w_down, shared, trainable)
+
+
+def _pick_groups(preferred: int, T: int) -> int:
+    g = min(preferred, T)
+    while T % g:
+        g -= 1
+    return max(g, 1)
+
+
+def moe_capacity(dims: MoEDims, tokens_per_group: int) -> int:
+    """Slots per expert and group: ``int(Tg K / E * cf) + 1`` rounded up
+    to a multiple of 4, at least 4."""
+    C = int((tokens_per_group * dims.top_k / dims.n_experts)
+            * dims.capacity_factor) + 1
+    return max(4, -(-C // 4) * 4)
+
+
+def moe_route(p: MoE, x: Tensor, top_k: int
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The router in fp32: ``(probs (..., E), gates (..., K), ids (...,
+    K))``, the top ``K`` experts of each token by probability, in
+    falling order as ``jax.lax.top_k`` gives them, their gates
+    renormalised to sum 1."""
+    logits = x.to(torch.float32) @ p.router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, ids = torch.topk(probs, top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, ids
+
+
+def moe_apply(p: MoE, x: Tensor, dims: MoEDims, *,
+              compute_dtype=torch.bfloat16) -> Tuple[Tensor, Tensor]:
+    """Sort-based dropping MoE (MegaBlocks/MaxText style), group-local, as
+    the JAX package's ``moe_apply``: x (B, S, D) -> (y, Switch aux loss).
+
+    The ``T = B S`` tokens split into ``G = _pick_groups(32, T)`` groups of
+    ``Tg``.  In each group the ``Tg K`` routed copies are sorted by expert
+    (a stable sort, as ``jnp.argsort(stable=True)``: it decides which
+    copies overflow) and the first ``C`` of each expert fill its slots;
+    the rest are dropped, sent to a trash row past the ``E G C`` real
+    slots (the JAX scatter drops them with ``mode="drop"``).  The slots
+    are laid out expert-major, ``(E, G C, D)``, so the expert products
+    are three ``torch.bmm`` over the experts; the combine gathers each
+    copy's row, weighs it by its gate (0 if dropped) and adds it to its
+    token with ``index_add_``.  Shared experts add a SwiGLU of every token.
+    Nothing here waits for the device."""
+    cd = compute_dtype
+    B, S, D = x.shape
+    E, K = dims.n_experts, dims.top_k
+    T = B * S
+    G = _pick_groups(dims.dispatch_groups, T)
+    Tg = T // G
+    dev = x.device
+    xg = x.reshape(G, Tg, D)
+
+    probs, gates, ids = moe_route(p, xg, K)
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e over all tokens
+    me = probs.mean(dim=(0, 1))
+    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
+        0, ids.reshape(-1), torch.ones((T * K,), dtype=torch.float32,
+                                       device=dev)) / (T * K)
+    aux = E * torch.sum(me * ce)
+
+    C = moe_capacity(dims, Tg)
+    n = Tg * K
+    expert_of = ids.reshape(G, n)
+    se, order = torch.sort(expert_of, dim=-1, stable=True)       # (G, n)
+    st = torch.div(order, K, rounding_mode="floor")              # token
+    sg = torch.gather(gates.reshape(G, n), 1, order)             # gate
+    starts = torch.searchsorted(
+        se, torch.arange(E, device=dev, dtype=se.dtype).expand(G, E)
+        .contiguous(), side="left")
+    pos = torch.arange(n, device=dev) - torch.gather(starts, 1, se)
+    keep = pos < C
+    grp = torch.arange(G, device=dev)[:, None]
+    trash = E * G * C
+    slot = torch.where(keep, se * (G * C) + grp * C + pos, trash)  # (G, n)
+    tok = (grp * Tg + st).reshape(-1)                            # (G n,)
+    xs = xg.reshape(T, D).index_select(0, tok).to(cd)
+    buf = torch.zeros((trash + 1, D), dtype=cd, device=dev)
+    buf.index_copy_(0, slot.reshape(-1), xs)
+    del xs
+    hb = buf[:trash].view(E, G * C, D)
+
+    g = torch.bmm(hb, p.w_gate.to(cd))
+    u = torch.bmm(hb, p.w_up.to(cd))
+    del buf, hb
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(cd) * u
+    del g, u
+    yb = torch.bmm(h, p.w_down.to(cd)).view(trash, D)            # (E G C, D)
+    del h
+
+    y_cp = yb.index_select(0, torch.clamp(slot, max=trash - 1).reshape(-1))
+    y_cp = (y_cp * keep.reshape(-1, 1).to(cd)
+            * sg.reshape(-1, 1).to(cd))
+    y = torch.zeros((T, D), dtype=cd, device=dev).index_add_(0, tok, y_cp)
+    y = y.view(G, Tg, D)
+    if p.shared is not None:
+        y = y + swiglu(p.shared, xg, cd)
+    return y.reshape(B, S, D).to(x.dtype), aux

@@ -1,15 +1,16 @@
-"""Decoder-only LM, dense stack (port of the matching subset of
-``repro.models.transformer``): ``LMConfig``, ``init_params``,
-``forward`` and ``loss_fn`` (training), ``prefill``, ``init_cache`` and
-``decode_step`` (serving).
-
-``LMConfig`` keeps every field of the JAX config, but the port runs
-only the dense, full-attention stack (qwen1.5, granite, command-r):
-MoE, MLA and sliding windows raise ``NotImplementedError`` and wait for
-a later slice (ROADMAP.md Queue 1).  The layers are an
-``nn.ModuleList`` run in a Python loop where the JAX package scans a
-stacked pytree; the weights keep the JAX names and shapes, one layer per
-module (``models.weights`` stacks and unstacks them).
+"""Decoder-only LM (port of ``repro.models.transformer``): ``LMConfig``,
+``init_params``, ``forward`` and ``loss_fn`` (training), ``prefill``,
+``init_cache`` and ``decode_step`` (serving), for every stack the JAX
+package builds: dense GQA (qwen1.5, granite, command-r), sliding-window
+GQA with MoE (mixtral: a ring KV cache of ``window`` slots) and MLA with
+MoE and shared experts behind ``first_k_dense`` dense layers
+(deepseek-v2: a latent cache of ``c_kv`` and ``k_rope``).  The layers
+are an ``nn.ModuleList`` run in a Python loop where the JAX package
+scans two stacked pytrees (``dense_layers``, then ``moe_layers``); the
+weights keep the JAX names and shapes, one layer per module
+(``models.weights`` stacks and unstacks them).  Gradients through the
+MoE dispatch and MLA are not yet held against the JAX package (ROADMAP.md
+Queue 1): the trainer takes dense stacks.
 
 Training (``forward``/``loss_fn``) attends through
 ``layers.chunked_attention``, as the JAX trainer does, and maps
@@ -91,19 +92,31 @@ class LMConfig:
         return L.DTYPES[self.dtype]
 
 
-def _check_dense(cfg: LMConfig) -> None:
-    for flag, what in ((cfg.moe, "MoE"), (cfg.mla, "MLA"),
-                       (cfg.sliding_window, "sliding-window attention")):
-        if flag:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported to PyTorch yet "
-                "(ROADMAP.md Queue 1); this slice runs dense, "
-                "full-attention stacks")
+    @property
+    def mla_dims(self) -> L.MLADims:
+        return L.MLADims(self.d_model, self.n_heads, self.q_lora,
+                         self.kv_lora, self.qk_nope_dim, self.qk_rope_dim,
+                         self.v_head_dim)
+
+    @property
+    def moe_dims(self) -> L.MoEDims:
+        return L.MoEDims(self.d_model, self.n_experts, self.top_k,
+                         self.moe_d_ff or self.d_ff, self.n_shared_experts,
+                         self.capacity_factor)
+
+    @property
+    def n_dense_layers(self) -> int:
+        """Leading dense layers (the JAX ``dense_layers`` stack); the rest
+        are MoE layers (``moe_layers``)."""
+        return self.first_k_dense if self.moe else self.n_layers
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, attn_norm: L.RMSNorm, attn: L.GQA,
-                 mlp_norm: L.RMSNorm, mlp: L.SwiGLU):
+    """``attn`` is a :class:`~repro_torch.models.layers.GQA` or an
+    ``MLA``; ``mlp`` a ``SwiGLU`` or a ``MoE``."""
+
+    def __init__(self, attn_norm: L.RMSNorm, attn: nn.Module,
+                 mlp_norm: L.RMSNorm, mlp: nn.Module):
         super().__init__()
         self.attn_norm, self.attn = attn_norm, attn
         self.mlp_norm, self.mlp = mlp_norm, mlp
@@ -135,22 +148,30 @@ def init_params(cfg: LMConfig, seed: int = 0, device: DeviceLike = None,
     from one ``torch.Generator`` on that device; its parameters require
     grad when ``trainable``.  The numbers differ from the JAX package's
     for the same seed; carry JAX weights across with
-    ``models.weights.lm_from_numpy``."""
-    _check_dense(cfg)
+    ``models.weights.lm_from_numpy``.  The first ``cfg.n_dense_layers``
+    layers are dense, the rest MoE; attention is MLA when ``cfg.mla``."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     dt, tr = cfg.param_dtype, trainable
     embed = L.embed_init(cfg.padded_vocab, cfg.d_model, generator=g,
                          dtype=dt, trainable=tr)
     layers = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         attn_norm = L.rmsnorm_init(cfg.d_model, dt, dev, trainable=tr)
-        attn = L.gqa_init(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.head_dim, generator=g, qkv_bias=cfg.qkv_bias,
-                          dtype=dt, trainable=tr)
+        if cfg.mla:
+            attn = L.mla_init(cfg.mla_dims, generator=g, dtype=dt,
+                              trainable=tr)
+        else:
+            attn = L.gqa_init(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, generator=g,
+                              qkv_bias=cfg.qkv_bias, dtype=dt, trainable=tr)
         mlp_norm = L.rmsnorm_init(cfg.d_model, dt, dev, trainable=tr)
-        mlp = L.swiglu_init(cfg.d_model, cfg.d_ff, generator=g, dtype=dt,
-                            trainable=tr)
+        if i < cfg.n_dense_layers:
+            mlp = L.swiglu_init(cfg.d_model, cfg.d_ff, generator=g,
+                                dtype=dt, trainable=tr)
+        else:
+            mlp = L.moe_init(cfg.moe_dims, generator=g, dtype=dt,
+                             trainable=tr)
         layers.append(DecoderLayer(attn_norm, attn, mlp_norm, mlp))
     final_norm = L.rmsnorm_init(cfg.d_model, dt, dev, trainable=tr)
     lm_head = None
@@ -176,15 +197,42 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _layer_fwd(cfg: LMConfig, lp: DecoderLayer, x: Tensor,
-               positions: Tensor) -> Tensor:
-    h = L.rmsnorm(lp.attn_norm, x, cfg.norm_eps)
-    x = x + L.gqa_apply(lp.attn, h, positions=positions,
-                        rope_theta=cfg.rope_theta,
-                        window=cfg.sliding_window, attn_chunk=cfg.attn_chunk,
-                        compute_dtype=cfg.param_dtype, attention="chunked")
+def _attn(cfg: LMConfig, lp: DecoderLayer, h: Tensor, positions: Tensor,
+          attention: str, backend: str = "auto", return_kv: bool = False):
+    """The layer's attention over a whole sequence (GQA, windowed when
+    the config says so, or MLA), by ``attention`` ("chunked" or
+    "flash")."""
+    if isinstance(lp.attn, L.MLA):
+        return L.mla_apply(lp.attn, h, cfg.mla_dims, positions=positions,
+                           rope_theta=cfg.rope_theta,
+                           attn_chunk=cfg.attn_chunk,
+                           compute_dtype=cfg.param_dtype,
+                           return_kv=return_kv, attention=attention,
+                           backend=backend)
+    return L.gqa_apply(lp.attn, h, positions=positions,
+                       rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+                       attn_chunk=cfg.attn_chunk,
+                       compute_dtype=cfg.param_dtype, return_kv=return_kv,
+                       attention=attention, backend=backend)
+
+
+def _mlp(cfg: LMConfig, lp: DecoderLayer, x: Tensor
+         ) -> Tuple[Tensor, Optional[Tensor]]:
+    """``x + mlp(norm(x))`` and the layer's MoE aux loss (``None`` for a
+    dense layer)."""
     h = L.rmsnorm(lp.mlp_norm, x, cfg.norm_eps)
-    return x + L.swiglu(lp.mlp, h, cfg.param_dtype)
+    if isinstance(lp.mlp, L.MoE):
+        m, aux = L.moe_apply(lp.mlp, h, cfg.moe_dims,
+                             compute_dtype=cfg.param_dtype)
+        return x + m, aux
+    return x + L.swiglu(lp.mlp, h, cfg.param_dtype), None
+
+
+def _layer_fwd(cfg: LMConfig, lp: DecoderLayer, x: Tensor,
+               positions: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+    h = L.rmsnorm(lp.attn_norm, x, cfg.norm_eps)
+    x = x + _attn(cfg, lp, h, positions, "chunked")
+    return _mlp(cfg, lp, x)
 
 
 def _remat(cfg: LMConfig, fn):
@@ -208,18 +256,20 @@ def _remat(cfg: LMConfig, fn):
 def forward(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
             ) -> Tuple[Tensor, Tensor]:
     """tokens (B, S) -> (logits (B, S, Vpad) in the param dtype, MoE aux
-    loss (0: dense stacks))."""
-    _check_dense(cfg)
+    loss summed over the MoE layers (0: dense stacks))."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = L.embed_lookup(model.embed.table, tokens)
     layer = _remat(cfg, functools.partial(_layer_fwd, cfg))
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
-        x = layer(lp, x, positions)
+        x, aux = layer(lp, x, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
     dt = cfg.param_dtype
     logits = x.to(dt) @ model.head_table().to(dt).T
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 class _ExpSum(torch.autograd.Function):
@@ -246,7 +296,8 @@ def loss_fn(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
     JAX package: pad-vocab logits are masked to ``finfo(float32).min /
     2``, the max is taken without gradient, lse is an fp32 exp-sum, and
     ``ce = sum((lse - logit[label]) * valid) / max(n_valid, 1)``.
-    Metrics ``{"ce", "aux", "ppl"}`` (``aux`` = 0)."""
+    Metrics ``{"ce", "aux", "ppl"}`` (``aux``: the MoE aux loss, 0 for
+    dense stacks), and the total is ``ce + moe_aux_weight * aux``."""
     logits, aux = forward(model, cfg, tokens)
     pad = torch.arange(cfg.padded_vocab, device=logits.device) \
         >= cfg.vocab_size
@@ -269,11 +320,6 @@ def loss_fn(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
 # prefill / decode (serve path)
 # ---------------------------------------------------------------------------
 
-def _mlp_block(lp: DecoderLayer, cfg: LMConfig, x: Tensor) -> Tensor:
-    h = L.rmsnorm(lp.mlp_norm, x, cfg.norm_eps)
-    return x + L.swiglu(lp.mlp, h, cfg.param_dtype)
-
-
 def _logits(model: TransformerLM, cfg: LMConfig, x: Tensor) -> Tensor:
     """x (B, D) -> fp32 logits (B, Vpad) over the (tied) head table."""
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
@@ -281,59 +327,89 @@ def _logits(model: TransformerLM, cfg: LMConfig, x: Tensor) -> Tensor:
     return (x.to(dt) @ model.head_table().to(dt).T).to(torch.float32)
 
 
+def _cache_keys(cfg: LMConfig) -> Tuple[str, str]:
+    return ("c_kv", "k_rope") if cfg.mla else ("k", "v")
+
+
 def prefill(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
             max_len: Optional[int] = None, backend: str = "auto",
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Run the full prompt ``tokens (B, S)``; return last-token logits
-    ``(B, Vpad)`` fp32 and the populated KV cache, ready for
+    ``(B, Vpad)`` fp32 and the populated cache, ready for
     :func:`decode_step`.  The cache holds ``cap = max(max_len, S)`` slots
-    (``max_len`` defaults to ``S``), the prompt's keys and values in the
-    first ``S``."""
-    _check_dense(cfg)
+    (``max_len`` defaults to ``S``), the prompt's entries in the first
+    ``S``; with a sliding window ``w`` it is a ring of ``cap = w`` slots
+    holding the trailing ``min(S, w)`` positions, position ``p`` in slot
+    ``p % w`` (the JAX package's roll by ``(S - w) % w``).  MLA caches the
+    latent ``c_kv`` and the shared ``k_rope``, GQA the RoPE'd K and V."""
     B, S = tokens.shape
+    w = cfg.sliding_window
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = L.embed_lookup(model.embed.table, tokens)
-    cache = init_cache(cfg, B, max(max_len or S, S), device=tokens.device)
+    cap = w if w else max(max_len or S, S)
+    cache = init_cache(cfg, B, cap, device=tokens.device)
+    keys = _cache_keys(cfg)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp.attn_norm, x, cfg.norm_eps)
-        a, (k, v) = L.gqa_apply(lp.attn, h, positions=positions,
-                                rope_theta=cfg.rope_theta,
-                                compute_dtype=cfg.param_dtype,
-                                return_kv=True, attention="flash",
-                                backend=backend)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-        x = _mlp_block(lp, cfg, x + a)
+        a, kv = _attn(cfg, lp, h, positions, "flash", backend=backend,
+                      return_kv=True)
+        for name, t in zip(keys, kv):
+            if w and S > w:
+                t = torch.roll(t[:, S - w:], (S - w) % w, dims=1)
+            cache[name][i, :, :t.shape[1]] = t
+        del kv
+        x, _ = _mlp(cfg, lp, x + a)
     cache["len"].fill_(S)
     return _logits(model, cfg, x[:, -1]), cache
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None) -> Dict[str, Tensor]:
-    """KV cache: ``k``/``v`` ``(n_layers, B, max_len, KH, Dh)`` zeros in
-    the param dtype (or ``dtype``), ``len`` ``(B,)`` int32 zeros."""
-    _check_dense(cfg)
+    """Zeros in the param dtype (or ``dtype``) and ``len`` ``(B,)`` int32
+    zeros: ``k``/``v`` ``(n_layers, B, S, KH, Dh)`` for GQA, where ``S``
+    is ``min(max_len, window)`` with a sliding window (a ring buffer);
+    ``c_kv`` ``(n_layers, B, S, kv_lora)`` and ``k_rope`` ``(n_layers, B,
+    S, qk_rope_dim)`` for MLA."""
     dev = resolve_device(device)
     dt = dtype or cfg.param_dtype
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    S = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    nl = cfg.n_layers
+    if cfg.mla:
+        shapes = {"c_kv": (nl, batch, S, cfg.kv_lora),
+                  "k_rope": (nl, batch, S, cfg.qk_rope_dim)}
+    else:
+        shape = (nl, batch, S, cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": shape, "v": shape}
+    cache = {k: torch.zeros(sh, dtype=dt, device=dev)
+             for k, sh in shapes.items()}
+    cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return cache
 
 
 def decode_step(model: TransformerLM, cfg: LMConfig, token: Tensor,
                 cache: Dict[str, Tensor],
                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One token for every sequence: ``token (B,)`` -> fp32 logits ``(B,
-    Vpad)`` and the cache, updated in place, with ``len + 1``."""
+    Vpad)`` and the cache, updated in place, with ``len + 1``: GQA
+    writes slot ``min(len, S - 1)``, or ring slot ``len % S`` with a
+    sliding window; MLA writes its latent entries (absorbed decode)."""
     x = L.embed_lookup(model.embed.table, token[:, None])      # (B, 1, D)
     pos = cache["len"]
+    keys = _cache_keys(cfg)
     for i, lp in enumerate(model.layers):
-        lcache = {"k": cache["k"][i], "v": cache["v"][i], "len": pos}
+        lcache = {name: cache[name][i] for name in keys}
+        lcache["len"] = pos
         h = L.rmsnorm(lp.attn_norm, x, cfg.norm_eps)
-        a, _ = L.gqa_decode(lp.attn, h, lcache, rope_theta=cfg.rope_theta,
-                            compute_dtype=cfg.param_dtype)
-        x = _mlp_block(lp, cfg, x + a)
+        if isinstance(lp.attn, L.MLA):
+            a, _ = L.mla_decode(lp.attn, h, lcache, cfg.mla_dims,
+                                rope_theta=cfg.rope_theta,
+                                compute_dtype=cfg.param_dtype)
+        else:
+            a, _ = L.gqa_decode(lp.attn, h, lcache,
+                                rope_theta=cfg.rope_theta,
+                                window=cfg.sliding_window,
+                                compute_dtype=cfg.param_dtype)
+        x, _ = _mlp(cfg, lp, x + a)
     new_cache = dict(cache)
     new_cache["len"] = pos + 1
     return _logits(model, cfg, x[:, 0]), new_cache

@@ -2,7 +2,8 @@
 
 The JAX models are pytrees of arrays; their tests pass them across as
 numpy arrays (``jax.tree.map(np.asarray, params)``), layer weights
-stacked on a leading ``n_layers`` axis under ``dense_layers``.  The
+stacked on a leading layer axis under ``dense_layers`` and, for MoE
+stacks, ``moe_layers`` (after ``first_k_dense`` dense layers).  The
 port keeps one module per layer.  ``*_from_numpy`` build a port model
 from such a tree (numpy arrays or tensors; bf16 numpy arrays from
 ``ml_dtypes`` are reinterpreted bit for bit), ``*_leaves`` list a
@@ -40,37 +41,55 @@ def _tensor(a, device: torch.device) -> Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def lm_from_numpy(cfg: T.LMConfig, tree: Tree, device: DeviceLike = None,
-                  trainable: bool = False) -> T.TransformerLM:
-    """The port's model holding the weights of a JAX ``init_params`` tree
-    (numpy or tensor leaves; layer weights stacked on a leading
-    ``n_layers`` axis under ``dense_layers``).  Dense stacks only."""
-    T._check_dense(cfg)
-    dev = resolve_device(device)
-    if "moe_layers" in tree or "dense_layers" not in tree:
-        raise ValueError("lm_from_numpy takes a dense stack "
-                         "(tree['dense_layers'] and no 'moe_layers')")
-
-    def t(a):
-        return _tensor(a, dev)
-
-    st = tree["dense_layers"]
-    n = int(np.asarray(st["attn_norm"]["scale"]).shape[0])
-    if n != cfg.n_layers:
-        raise ValueError(f"tree holds {n} layers, config {cfg.n_layers}")
-    layers = []
-    for i in range(n):
-        a = st["attn"]
+def _lm_layer(tree: Tree, i: int, t, trainable: bool) -> T.DecoderLayer:
+    """Layer ``i`` of a stacked JAX layer tree (``dense_layers`` or
+    ``moe_layers``): GQA or MLA attention, SwiGLU or MoE MLP, told apart
+    by their keys (``wkv_a``, ``router``) as the JAX package does."""
+    a = tree["attn"]
+    if "wkv_a" in a:
+        attn = L.MLA({k: t(a[k][i]) for k in sorted(a)}, trainable)
+    else:
         bias = [t(a[k][i]) for k in ("bq", "bk", "bv")] if "bq" in a \
             else []
         attn = L.GQA(t(a["wq"][i]), t(a["wk"][i]), t(a["wv"][i]),
                      t(a["wo"][i]), *bias, trainable=trainable)
-        m = st["mlp"]
-        mlp = L.SwiGLU(t(m["w_gate"][i]), t(m["w_up"][i]),
-                       t(m["w_down"][i]), trainable)
-        layers.append(T.DecoderLayer(
-            L.RMSNorm(t(st["attn_norm"]["scale"][i]), trainable), attn,
-            L.RMSNorm(t(st["mlp_norm"]["scale"][i]), trainable), mlp))
+    m = tree["mlp"]
+
+    def swiglu(m):
+        return L.SwiGLU(t(m["w_gate"][i]), t(m["w_up"][i]),
+                        t(m["w_down"][i]), trainable)
+
+    if "router" in m:
+        shared = swiglu(m["shared"]) if "shared" in m else None
+        mlp = L.MoE(t(m["router"][i]), t(m["w_gate"][i]), t(m["w_up"][i]),
+                    t(m["w_down"][i]), shared, trainable)
+    else:
+        mlp = swiglu(m)
+    return T.DecoderLayer(
+        L.RMSNorm(t(tree["attn_norm"]["scale"][i]), trainable), attn,
+        L.RMSNorm(t(tree["mlp_norm"]["scale"][i]), trainable), mlp)
+
+
+def lm_from_numpy(cfg: T.LMConfig, tree: Tree, device: DeviceLike = None,
+                  trainable: bool = False) -> T.TransformerLM:
+    """The port's model holding the weights of a JAX ``init_params`` tree
+    (numpy or tensor leaves; layer weights stacked on a leading layer axis
+    under ``dense_layers`` and, for MoE stacks, ``moe_layers``)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return _tensor(a, dev)
+
+    layers = []
+    for key, want in (("dense_layers", cfg.n_dense_layers),
+                      ("moe_layers", cfg.n_layers - cfg.n_dense_layers)):
+        st = tree.get(key)
+        n = 0 if st is None else int(
+            np.asarray(st["attn_norm"]["scale"]).shape[0])
+        if n != want:
+            raise ValueError(f"tree holds {n} {key}, config {cfg.name} "
+                             f"{want}")
+        layers += [_lm_layer(st, i, t, trainable) for i in range(n)]
     lm_head = (L.Embed(t(tree["lm_head"]["table"]), trainable)
                if "lm_head" in tree else None)
     return T.TransformerLM(L.Embed(t(tree["embed"]["table"]), trainable),
@@ -99,29 +118,44 @@ def twotower_from_numpy(cfg: R.TwoTowerConfig, tree: Tree,
         tower(tree["user_tower"]), tower(tree["item_tower"]))
 
 
-# The parameters of one DecoderLayer: JAX paths under dense_layers, which
-# are also the attribute paths in the port's modules.
-_LAYER_LEAVES = ("attn/bk", "attn/bq", "attn/bv", "attn/wk", "attn/wo",
-                 "attn/wq", "attn/wv", "attn_norm/scale", "mlp/w_down",
-                 "mlp/w_gate", "mlp/w_up", "mlp_norm/scale")
+def _stacked(prefix: str, layers) -> List[Leaf]:
+    """The stacked leaves of ``layers`` (all of one kind): the JAX paths
+    under ``prefix``, which are the attribute paths in the port's modules,
+    in the JAX leaf order (sorted paths)."""
+    if not layers:
+        return []
+    paths = sorted(n.replace(".", "/") for n, _ in
+                   layers[0].named_parameters())
+    return [(f"{prefix}/{path}",
+             [functools.reduce(getattr, path.split("/"), lp)
+              for lp in layers], True) for path in paths]
 
 
-def lm_leaves(model: T.TransformerLM) -> List[Leaf]:
-    """The model's parameters as the JAX ``init_params`` leaves, in its
-    leaf order: each ``dense_layers`` leaf is stacked from the layers."""
+def _all_leaves(model: T.TransformerLM) -> List[Leaf]:
     layers = list(model.layers)
-    qkv_bias = layers[0].attn.qkv_bias if layers else False
-    out: List[Leaf] = [
-        (f"dense_layers/{path}",
-         [functools.reduce(getattr, path.split("/"), lp) for lp in layers],
-         True)
-        for path in _LAYER_LEAVES
-        if layers and (qkv_bias or not path.startswith("attn/b"))]
+    moe = [lp for lp in layers if isinstance(lp.mlp, L.MoE)]
+    dense = layers[:len(layers) - len(moe)]
+    out = _stacked("dense_layers", dense)
     out.append(("embed/table", [model.embed.table], False))
     out.append(("final_norm/scale", [model.final_norm.scale], False))
     if model.lm_head is not None:
         out.append(("lm_head/table", [model.lm_head.table], False))
-    return out
+    return out + _stacked("moe_layers", moe)
+
+
+def lm_leaves(model: T.TransformerLM) -> List[Leaf]:
+    """The model's parameters as the JAX ``init_params`` leaves, in its
+    leaf order: each ``dense_layers`` leaf is stacked from the layers.
+    Dense GQA stacks only: training MoE and MLA stacks (the trainer's
+    leaves, gradients through the dispatch) is ROADMAP.md Queue 1's
+    next item."""
+    for lp in model.layers:
+        if isinstance(lp.mlp, L.MoE) or isinstance(lp.attn, L.MLA):
+            raise NotImplementedError(
+                "training MoE/MLA stacks is not ported yet (ROADMAP.md "
+                "Queue 1: training for MoE, MLA and sliding windows); "
+                "lm_to_numpy carries their weights")
+    return _all_leaves(model)
 
 
 def twotower_leaves(model: R.TwoTower) -> List[Leaf]:
@@ -173,8 +207,9 @@ def _numpy(t: Tensor) -> np.ndarray:
 
 
 def lm_to_numpy(model: T.TransformerLM) -> Tree:
-    """The JAX ``init_params`` tree (numpy leaves) of the model."""
-    return tree_map(_numpy, leaves_to_tree(lm_leaves(model)))
+    """The JAX ``init_params`` tree (numpy leaves) of the model, MoE and
+    MLA stacks included."""
+    return tree_map(_numpy, leaves_to_tree(_all_leaves(model)))
 
 
 def twotower_to_numpy(model: R.TwoTower) -> Tree:

@@ -535,11 +535,72 @@ def test_bf16_flash_kernel_runs_on_the_tensor_cores(cuda_device):
         assert "HGMMA" not in sass and "HMMA" not in sass, name
 
 
+# B, S, H, KH, D, Dv, window: ragged lengths, windows at and around the
+# 128-key tile (a row whose first loaded tile it cannot see), past S, and
+# GQA 48/8 at mixtral's head width; then MLA's 192/128 heads (one kv head
+# per query head), a partial third panel (D 136) and the plain-load fill
+# (D 130, 190).
+FLASH_WINDOW_CASES = [
+    (2, 1000, 8, 2, 64, 64, 1), (1, 1000, 8, 2, 64, 64, 100),
+    (1, 1000, 8, 2, 64, 64, 127), (1, 1000, 8, 2, 64, 64, 128),
+    (1, 1000, 8, 2, 64, 64, 129), (1, 777, 4, 4, 32, 24, 1000),
+    (1, 5000, 48, 8, 128, 128, 4096), (1, 1100, 48, 8, 128, 128, 300),
+    (1, 300, 4, 2, 6, 10, 37),
+]
+FLASH_D192_CASES = [
+    (2, 300, 4, 4, 192, 128, 0), (1, 1000, 8, 8, 192, 128, 0),
+    (1, 129, 2, 2, 192, 64, 0), (1, 1000, 8, 8, 192, 128, 200),
+    (1, 260, 2, 1, 136, 128, 0), (1, 200, 2, 2, 130, 100, 0),
+    (1, 333, 4, 2, 190, 72, 64),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,S,H,KH,D,Dv,window",
+                         FLASH_WINDOW_CASES + FLASH_D192_CASES)
+def test_flash_kernel_window_and_wide_heads_match_plain(
+        cuda_device, B, S, H, KH, D, Dv, window, dtype, tol):
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in fp32
+    g = torch.Generator(device=cuda_device).manual_seed(S * 7 + window)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((B, S, H, D), (B, S, KH, D), (B, S, KH, Dv)))
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, window=window)
+    want = ops.flash_attention(q, k, v, window=window, backend="plain")
+    assert flash_attention.launches == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < tol, err
+
+
+def test_flash_kernel_window_with_a_negative_scale(cuda_device):
+    """The multiply-first branch masks with -1e30: a row whose first tile
+    it cannot see still adds exactly 0 from it."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        q, k, v = (torch.randn((1, 512, 4, 64), generator=g,
+                               device=cuda_device).to(dtype)
+                   for _ in range(3))
+        for w in (1, 128, 200):
+            got = ops.flash_attention(q, k, v, window=w, softmax_scale=-0.2)
+            want = ops.flash_attention(q, k, v, window=w, softmax_scale=-0.2,
+                                       backend="plain")
+            err = (got.float() - want.float()).abs().max().item()
+            assert err < tol, (dtype, w, err)
+
+
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((1, 4, 2, 8), device=cuda_device)
     with pytest.raises(ValueError, match="head dims"):
-        flash_attention(torch.zeros((1, 4, 2, 192), device=cuda_device),
-                        *(torch.zeros((1, 4, 2, 192), device=cuda_device),) * 2)
+        flash_attention(torch.zeros((1, 4, 2, 200), device=cuda_device),
+                        *(torch.zeros((1, 4, 2, 200), device=cuda_device),) * 2)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, torch.zeros((1, 4, 2, 192), device=cuda_device))
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, q, q, causal=False, window=2)
+    with pytest.raises(ValueError, match="Sq <= Skv"):
+        flash_attention(torch.zeros((1, 5, 2, 8), device=cuda_device), q, q,
+                        window=2)
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="group"):
@@ -651,6 +712,32 @@ def test_serving_paths_launch_their_kernels(cuda_device):
     vp, ip = R.retrieval_scores(tt, tcfg, *args, cand, topk=10,
                                 backend="plain")
     assert torch.equal(ik, ip) and (vk - vp).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("arch,S", [("mixtral-8x22b", 40),
+                                    ("mixtral-8x22b", 77),
+                                    ("deepseek-v2-236b", 50)])
+def test_moe_serving_on_card_launches_and_matches_plain(cuda_device, arch,
+                                                        S):
+    """The MoE/MLA/sliding-window serving path on the card: prefill
+    launches flash attention once a layer (windowed past the smoke
+    window of 32; 24-wide MLA heads), and the decode loop (ring wrap, MoE
+    dispatch, latent cache) runs under the device-purity guard, so the
+    dispatch never waits for the card; tokens equal the plain path's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_greedy
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(arch).smoke_config_fn()
+    prompts = np.random.default_rng(S).integers(
+        0, cfg.vocab_size, (2, S)).astype(np.int32)
+    model = T.init_params(cfg, seed=1, device=cuda_device)
+    before = flash_attention.launches
+    got = serve_greedy(cfg, prompts, 40, model=model, device=cuda_device)
+    assert flash_attention.launches == before + cfg.n_layers
+    want = serve_greedy(cfg, prompts, 40, model=model, device=cuda_device,
+                        backend="plain")
+    assert np.array_equal(got, want)
 
 
 def test_sharded_dispatch_on_card_matches_plain(cuda_device):

@@ -65,19 +65,25 @@ def test_configs_equal_the_jax_package(name):
 
 def test_get_arch_names_roadmap_for_unported_archs():
     assert get_arch("two-tower-retrieval").family == "recsys"
+    assert get_arch("mixtral-8x22b").family == "lm"
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("mixtral-8x22b")
+        get_arch("graphsage-reddit")
 
 
 @pytest.mark.parametrize("flag", [dict(moe=True, n_experts=4, top_k=2),
                                   dict(mla=True, kv_lora=16),
                                   dict(sliding_window=8)])
 def test_moe_mla_and_sliding_window_raise_not_implemented(flag):
+    """MoE, MLA and sliding windows serve (their models and caches build);
+    training them is still to port, and the trainer says so."""
+    from repro_torch.launch.train import train_lm
+
     cfg = dataclasses.replace(tqwen._SMOKE, **flag)
+    TT.init_params(cfg, device="cpu")
+    cache = TT.init_cache(cfg, 1, 16, device="cpu")
+    assert ("c_kv" in cache) == bool(cfg.mla)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_cache(cfg, 1, 4, device="cpu")
+        train_lm(cfg, steps=1, batch=1, seq_len=8, device="cpu")
 
 
 def test_seeded_init_shapes_follow_the_jax_tree():

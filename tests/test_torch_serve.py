@@ -9,6 +9,8 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax
 
+from repro.configs import deepseek_v2_236b as jds
+from repro.configs import mixtral_8x22b as jmx
 from repro.configs import qwen1_5_0_5b as jqwen
 from repro.launch import serve as jserve
 from repro.models import transformer as JT
@@ -26,9 +28,16 @@ def _models(cfg, seed):
     return params, tcfg, model
 
 
-@pytest.mark.parametrize("B,S,max_new,seed", [(3, 24, 6, 0), (2, 64, 9, 1)])
-def test_serve_greedy_tokens_equal_the_jax_package(B, S, max_new, seed):
-    cfg = jqwen._SMOKE
+@pytest.mark.parametrize("cfg,B,S,max_new,seed", [
+    pytest.param(jqwen._SMOKE, 3, 24, 6, 0, id="3-24-6-0"),
+    pytest.param(jqwen._SMOKE, 2, 64, 9, 1, id="2-64-9-1"),
+    # the ring cache (window 32) holds a prompt of 45 rolled by (45 - 32)
+    # % 32 = 13, and decode overwrites its oldest slots
+    pytest.param(jmx._SMOKE, 2, 45, 12, 2, id="mixtral-2-45-12-2"),
+    # MLA's latent cache, MoE with a shared expert behind a dense layer
+    pytest.param(jds._SMOKE, 2, 30, 8, 3, id="deepseek-2-30-8-3"),
+])
+def test_serve_greedy_tokens_equal_the_jax_package(cfg, B, S, max_new, seed):
     params, tcfg, model = _models(cfg, seed)
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)

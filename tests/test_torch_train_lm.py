@@ -142,9 +142,13 @@ def test_chunked_attention_offset_valid_len_and_window():
                                q_offset=8, kv_valid_len=torch.tensor(valid),
                                chunk=4)
     assert _rel_err(got, want) <= 1e-5
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        TL.chunked_attention(*map(torch.tensor, (q, k, k)), causal=True,
-                             window=4)
+    want = JL.chunked_attention(*map(jnp.asarray, (q, k, k)), causal=True,
+                                q_offset=8, kv_valid_len=jnp.asarray(valid),
+                                window=4, chunk=4)
+    got = TL.chunked_attention(*map(torch.tensor, (q, k, k)), causal=True,
+                               q_offset=8, kv_valid_len=torch.tensor(valid),
+                               window=4, chunk=4)
+    assert _rel_err(got, want) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
