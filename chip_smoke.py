@@ -95,7 +95,22 @@ before any rank is spawned, and then (TF32 off throughout):
    widths in fp32 at 2 layers through the kernel and the plain path
    (equal tokens, logits within 1e-3); then times flash attention at both
    prefill shapes beside its bound, its plain version and SDPA;
-13. last, the checked build runs phase 1's flash sweep (each output equal
+13. trains the MoE archs (``phase_train_moe``, PERF.md §4's cells
+   (g)-(i)): mixtral-8x22b at full width, 1 of 56 layers, fp32, through
+   ``train_lm`` (AdamW, 1 x 5120, past the 4096 window, 3 steps);
+   deepseek-v2-236b at full width, 2 of 60 layers (a dense and an MoE
+   layer), fp32, Adafactor (4 x 1024, 2 steps): ms a step, tokens/s,
+   TFLOP/s over the active params, peak memory; at both smoke configs a
+   step on the card against one on the CPU (within 1e-4) and a restart
+   from a checkpoint that replays its losses;
+14. runs SASRec, DIN and xDeepFM at their full widths
+   (``phase_recsys_models``): ``serve_p99`` and (SASRec, DIN)
+   ``retrieval_cand`` walls, two AdamW steps at ``train_batch`` (xDeepFM
+   cut to 49,152), the card's outputs on a slice against the CPU's;
+   then the screened two-tower retrieval (bf16 screen of 1,000,000
+   candidates, fp32 rescoring of a 4096 shortlist) beside the exact one,
+   top-100 ids equal;
+15. last, the checked build runs phase 1's flash sweep (each output equal
    to the normal build's bit for bit) and its ES and N-list sweeps again
    (a failed device assert traps and fails the run), then the N-list
    sweeps with the merge's adv mask in its packed form, whose reading is
@@ -1609,17 +1624,6 @@ QWEN_MINI = dict(name="qwen1.5-mini", n_layers=4, d_model=256, n_heads=8,
 TWOTOWER_TRAIN_BATCH = 16_384       # train_batch's 65,536, cut (PERF.md §4)
 
 
-def _lm_params(cfg) -> int:
-    """Parameters of a dense LMConfig (the JAX ``param_count``)."""
-    d, H, KH, Dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-    layer = 2 * d + d * H * Dh + 2 * d * KH * Dh + H * Dh * d + 3 * d * f
-    if cfg.qkv_bias:
-        layer += (H + 2 * KH) * Dh
-    heads = 1 if cfg.tie_embeddings else 2
-    return cfg.n_layers * layer + heads * cfg.padded_vocab * d + d
-
-
 def _train_run(dev, counters, cfg, **kw):
     """``train_lm`` on the card with a log line every step: (result,
     per-step seconds (from one log line to the next, each after a device
@@ -1691,7 +1695,7 @@ def phase_train(dev, counters, seed, smi_line, trace_dir) -> dict:
 
     # (a) full width, the JAX main's settings.
     cfg = dataclasses.replace(qwen, dtype="float32", remat="none")
-    n_params = _lm_params(cfg)
+    n_params = cfg.param_count()
     res, steps_s, peak, wall = _train_run(
         dev, counters, cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
         seq_len=TRAIN_SEQ, lr=3e-3, seed=seed)
@@ -1816,11 +1820,11 @@ def phase_train(dev, counters, seed, smi_line, trace_dir) -> dict:
     res, steps_s, peak, wall = _train_run(
         dev, counters, granite, steps=2, batch=8, seq_len=256, lr=3e-3,
         seed=seed)
-    say(f"train (e) granite-3-8b at 4 of 40 layers ({_lm_params(granite)} "
+    say(f"train (e) granite-3-8b at 4 of 40 layers ({granite.param_count()} "
         f"params, fp32, AdamW), 8 x 256: losses "
         f"{[l for _, l in res['history']]}, second step "
         f"{steps_s[1] * 1e3:.3f} ms, peak {peak} B ({peak / 1e9:.3f} GB)")
-    out["e"] = {"granite": {"params": _lm_params(granite),
+    out["e"] = {"granite": {"params": granite.param_count(),
                             "losses": [l for _, l in res["history"]],
                             "step_s": steps_s.tolist(),
                             "peak_alloc_bytes": peak}}
@@ -1843,11 +1847,11 @@ def phase_train(dev, counters, seed, smi_line, trace_dir) -> dict:
     need(np.isfinite(cr_loss) and not any(launches.values()),
          f"train (e) command-r: loss {cr_loss}, launches {launches}")
     say(f"train (e) command-r-plus-104b at 1 of 64 layers "
-        f"({_lm_params(cr)} params, fp32, Adafactor), 8 x 256, one step "
+        f"({cr.param_count()} params, fp32, Adafactor), 8 x 256, one step "
         f"(the first, set-up included): loss {cr_loss:.4f}, grad norm "
         f"{float(m['grad_norm']):.4f}, {wall * 1e3:.3f} ms, peak {peak} B "
         f"({peak / 1e9:.3f} GB)")
-    out["e"]["command_r"] = {"params": _lm_params(cr), "loss": cr_loss,
+    out["e"]["command_r"] = {"params": cr.param_count(), "loss": cr_loss,
                              "step_s": wall, "peak_alloc_bytes": peak}
     del model, opt, step, batch, m
     torch.cuda.empty_cache()
@@ -1856,7 +1860,7 @@ def phase_train(dev, counters, seed, smi_line, trace_dir) -> dict:
     tcfg = get_arch("two-tower-retrieval").config_fn()
     torch.cuda.reset_peak_memory_stats(dev)
     tt = R.twotower_init(tcfg, seed=seed, device=dev, trainable=True)
-    opt = opt_init(W.twotower_leaves(tt), OptConfig(
+    opt = opt_init(W.recsys_leaves(tt), OptConfig(
         lr=1e-3, warmup_steps=0, decay_steps=3))
     b = twotower_batch(seed, TWOTOWER_TRAIN_BATCH, tcfg.n_users,
                        tcfg.n_items, tcfg.n_user_hist)
@@ -1909,6 +1913,443 @@ def phase_train(dev, counters, seed, smi_line, trace_dir) -> dict:
     del tt, opt, step, g_k, g_p, args, table
     torch.cuda.empty_cache()
     return {"launches": launches, "report": out}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: training the MoE archs (PERF.md §4's cells (g)-(i))
+# ---------------------------------------------------------------------------
+
+# (arch, layers, batch, seq, steps, optimizer): full width, depth cut to
+# what fp32 parameters, gradients and optimizer state leave room for.
+MOE_TRAIN_CELLS = (
+    ("g", "mixtral-8x22b", 1, 1, 5120, 3, "adamw"),
+    ("h", "deepseek-v2-236b", 2, 4, 1024, 2, "adafactor"),
+)
+
+
+def phase_train_moe(dev, counters, seed, smi_line, trace_dir=None) -> dict:
+    """Training the MoE archs on the card (PERF.md §4's cells (g)-(i)),
+    every run with the launch counts set to 0 just before.
+
+    (g) mixtral-8x22b at full width, 1 of 56 layers, fp32, remat none,
+    through ``train_lm`` (AdamW, lr 3e-3): 1 x 5120 (past the 4096
+    window), 3 steps.  (h) deepseek-v2-236b at full width, 2 of 60
+    layers (first_k_dense 1 + 1 MoE), fp32, Adafactor through
+    ``make_train_step``: 4 x 1024, 2 steps.  Each: finite losses, ms a
+    step, tokens/s, TFLOP/s (6 x active params x tokens), peak memory;
+    no kernel of the port on the path.  (i) at both smoke configs: one
+    ``train_lm`` step on the card and one on the CPU from the same
+    weights (loss and grad norm within 1e-4 relative, TF32 off: the MoE
+    combine and the embedding gradient add with atomics on the card),
+    a card run of 4 steps with a checkpoint at 2 whose restart replays
+    steps 3-4 within 1e-4, and ms a step under each remat mode (8 x 64,
+    6 steps, the median of the last 4; their losses within 1e-4).  The
+    learning rate of (g) and (h) is 3e-4: at 3e-3 with no warmup their
+    first steps move each weight by about a quarter of its scale, and
+    the loss climbs.  ``trace_dir`` (``--profile``) adds a traced run of
+    each of (g) and (h)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.models import weights as W
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_step import make_train_step
+
+    out = {"card": smi_line}
+    for cell, arch, n_layers, B, S, steps, kind in MOE_TRAIN_CELLS:
+        cfg = dataclasses.replace(get_arch(arch).config_fn(),
+                                  n_layers=n_layers, dtype="float32",
+                                  remat="none")
+        tokens = B * S
+        if kind == "adamw":         # the trainer a user calls
+            res, steps_s, peak, wall = _train_run(
+                dev, counters, cfg, steps=steps, batch=B, seq_len=S,
+                lr=3e-4, seed=seed)
+            losses = [l for _, l in res["history"]]
+            step_s = [float(s) for s in steps_s]
+            if trace_dir:
+                torch.cuda.empty_cache()
+                prof = profile_path(f"train_{cell}", lambda: train_lm(
+                    cfg, steps=2, batch=B, seq_len=S, lr=3e-4, seed=seed,
+                    device=dev, log_fn=_quiet), trace_dir)
+        else:                       # Adafactor: make_train_step itself
+            torch.cuda.reset_peak_memory_stats(dev)
+            model = T.init_params(cfg, seed=seed, device=dev,
+                                  trainable=True)
+            opt = opt_init(W.lm_leaves(model), OptConfig(
+                kind=kind, lr=3e-4, warmup_steps=0, decay_steps=steps))
+            step = make_train_step(lambda b: T.loss_fn(
+                model, cfg, b["tokens"], b["labels"]), opt)
+            data = SyntheticLM(LMDataConfig(cfg.vocab_size, B, S,
+                                            seed=seed))
+            losses, step_s = [], []
+            for i in range(steps):
+                toks, labs = data.batch(i)
+                batch = {"tokens": torch.from_numpy(toks).to(dev),
+                         "labels": torch.from_numpy(labs).to(dev)}
+                m, w, launches = _launches(counters, lambda: step(batch))
+                need(not any(launches.values()),
+                     f"train ({cell}): launches {launches}")
+                losses.append(float(m["loss"]))
+                step_s.append(w)
+            peak = torch.cuda.max_memory_allocated(dev)
+            if trace_dir:
+                prof = profile_path(f"train_{cell}", lambda: step(batch),
+                                    trace_dir)
+            del model, opt, step, batch, m
+        need(len(losses) == steps and np.isfinite(losses).all(),
+             f"train ({cell}) {arch}: losses {losses}")
+        step_ms = step_s[-1] * 1e3          # the last step: warm
+        n_active = cfg.active_param_count()
+        tflops = 6 * n_active * tokens / (step_ms * 1e-3) / 1e12
+        say(f"train ({cell}) {arch} at {n_layers} layers, full width "
+            f"({cfg.param_count()} params, {n_active} active), fp32, "
+            f"{kind}, {B} x {S}, {steps} steps: losses {losses}; step "
+            f"walls {[s * 1e3 for s in step_s]} ms; last step "
+            f"{step_ms:.3f} ms, {tokens / (step_ms * 1e-3):.1f} tokens/s, "
+            f"{tflops:.2f} TFLOP/s (6 x active params x tokens), peak "
+            f"{peak} B ({peak / 1e9:.3f} GB)")
+        out[cell] = {"arch": arch, "layers": n_layers, "batch": B,
+                     "seq": S, "optimizer": kind,
+                     "params": cfg.param_count(), "active": n_active,
+                     "losses": losses, "step_s": step_s,
+                     "step_ms": step_ms,
+                     "tokens_per_s": tokens / (step_ms * 1e-3),
+                     "tflops": tflops, "peak_alloc_bytes": peak}
+        if trace_dir:
+            out[cell]["profile"] = prof
+        torch.cuda.empty_cache()
+
+    # (i) the smoke configs: card against the CPU, then a restart.
+    out["i"] = {}
+    for arch in ("mixtral-8x22b", "deepseek-v2-236b"):
+        cfg = get_arch(arch).smoke_config_fn()
+        tree = W.lm_to_numpy(T.init_params(cfg, seed=seed, device="cpu"))
+        kw = dict(batch=2, seq_len=48, lr=3e-3, seed=seed, log_fn=_quiet)
+        one = {where: train_lm(cfg, steps=1, device=where, params=tree,
+                               **kw)["final"] for where in (dev, "cpu")}
+        card, cpu = one[dev], one["cpu"]
+        errs = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+                for k in ("loss", "grad_norm", "aux")}
+        need(max(errs.values()) <= 1e-4,
+             f"train (i) {arch}: card {card} vs CPU {cpu}")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_ckpt_")
+        try:
+            kw4 = dict(kw, steps=4, log_every=1, ckpt_dir=tmp, ckpt_every=2,
+                       device=dev, params=tree)
+            first = train_lm(cfg, **kw4)
+            shutil.rmtree(os.path.join(tmp, "step-00000004"))
+            again = train_lm(cfg, resume=True, **kw4)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        hist = dict(first["history"])
+        rerr = max(abs(l - hist[s]) / abs(hist[s])
+                   for s, l in again["history"])
+        need([s for s, _ in again["history"]] == [3, 4] and rerr <= 1e-4,
+             f"train (i) {arch}: restart {again['history']} vs "
+             f"{first['history']}")
+        say(f"train (i) {arch} smoke, 2 x 48, one step: card loss "
+            f"{card['loss']!r} gnorm {card['grad_norm']!r} aux "
+            f"{card['aux']!r}, CPU loss {cpu['loss']!r} gnorm "
+            f"{cpu['grad_norm']!r} aux {cpu['aux']!r}; relative errors "
+            f"{errs}; restart from step 2 replays steps 3-4 within "
+            f"{rerr:.3g}")
+        remat = {}
+        for mode in ("none", "dots", "full"):
+            stamps = []
+            res = train_lm(dataclasses.replace(cfg, remat=mode), steps=6,
+                           batch=8, seq_len=64, lr=3e-3, seed=seed,
+                           device=dev, params=tree, log_every=1,
+                           log_fn=lambda _: stamps.append(
+                               time.perf_counter()))
+            remat[mode] = {"step_ms": float(np.median(np.diff(
+                stamps)[1:])) * 1e3, "losses": [l for _, l in
+                                                res["history"]]}
+        base = remat["none"]["losses"]
+        need(all(abs(a - b) <= 1e-4 * abs(b) for r in remat.values()
+                 for a, b in zip(r["losses"], base, strict=True)),
+             f"train (i) {arch}: remat modes disagree {remat}")
+        say(f"train (i) {arch} smoke, 8 x 64, ms a step by remat mode: "
+            + ", ".join(f"{k} {v['step_ms']:.3f}" for k, v in remat.items())
+            + "; losses equal within 1e-4")
+        out["i"][arch] = {"card": card, "cpu": cpu, "rel_err": errs,
+                          "restart_rel_err": rerr,
+                          "history": first["history"],
+                          "resumed": again["history"], "remat": remat}
+    return {"report": out}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: SASRec, DIN and xDeepFM, and the screened retrieval
+# ---------------------------------------------------------------------------
+
+RECSYS_TRAIN_BATCH = {"sasrec": 65_536, "din": 65_536,
+                      # the CIN's (B, H m, D) maps: the step holds 1.33 MB
+                      # an example (22.57 GB at 16,384), so 65,536 would
+                      # need ~88 GB; cut to the largest multiple of 16,384
+                      # that fits (PERF.md §4)
+                      "xdeepfm": 49_152}
+RECSYS_SLICE = 8            # rows held against the CPU
+SCREEN_SHORTLIST = 4096
+
+
+def _walls(counters, fn, n=5):
+    """``n`` synchronised walls of ``fn`` (after one warm-up), its last
+    result and the last run's launch counts."""
+    fn()
+    walls = []
+    for _ in range(n):
+        res, w, launches = _launches(counters, fn)
+        walls.append(w)
+    return res, walls, launches
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over the largest |b| (both moved to the CPU)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def phase_recsys_models(dev, counters, seed, smi_line,
+                        trace_dir=None) -> dict:
+    """SASRec, DIN and xDeepFM at their ``_FULL`` widths (seeded random
+    weights, fp32) and the screened two-tower retrieval.  Each model:
+    ``serve_p99`` (512 users: SASRec against 200 candidates each, DIN and
+    xDeepFM one target each) and, SASRec and DIN, ``retrieval_cand`` (one
+    user over the 1,000,000-item catalog: ``sasrec_score`` of the whole
+    catalog, ``din_score_candidates`` in blocks of 65,536; top 100) walls,
+    five each after a warm-up; two AdamW steps through
+    ``make_train_step`` at ``train_batch`` 65,536 (xDeepFM 49,152), the
+    second step's wall and the peak memory; then the card's outputs on
+    the first 8 rows (serving logits, the train batch's loss) and on the
+    first 4096 retrieval candidates against the CPU's from the same
+    weights, within 1e-5 of the largest entry.  Then
+    ``retrieval_scores_screened`` at two-tower ``_FULL``, 1 x 1,000,000,
+    shortlist 4096, beside ``retrieval_scores`` in the same run (five
+    walls each, alternated): its top-100 ids equal to the exact path's
+    and its scores within 1e-5 of them; the bag kernel launched once a
+    query on both.  ``trace_dir`` (``--profile``) adds traced runs of
+    DIN's ``retrieval_cand``, each model's train step and both
+    retrievals."""
+    import torch
+    from repro_torch.configs import RECSYS_SHAPES, get_arch
+    from repro_torch.data import recsys_data as D
+    from repro_torch.models import recsys as R
+    from repro_torch.models import weights as W
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_step import make_train_step
+
+    n_p99 = RECSYS_SHAPES["serve_p99"].dims["batch"]
+    n_cand = RECSYS_SHAPES["retrieval_cand"].dims["n_candidates"]
+    out = {"card": smi_line}
+    rng = np.random.default_rng(seed)
+
+    def on(b, where, rows=None):
+        return {k: torch.from_numpy(v if rows is None else v[:rows]).to(
+            where) for k, v in b.items()}
+
+    for name in ("sasrec", "din", "xdeepfm"):
+        cfg = get_arch(name).config_fn()
+        init = {"sasrec": R.sasrec_init, "din": R.din_init,
+                "xdeepfm": R.xdeepfm_init}[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = init(cfg, seed=seed, device=dev, trainable=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cpu_model = W.recsys_from_numpy(W.recsys_to_numpy(model), "cpu")
+        n_params = sum(p.numel() for p in model.parameters())
+        rep = {"params": n_params, "init_s": init_s}
+
+        # serve_p99, and retrieval_cand where the JAX cell has one
+        if name == "sasrec":
+            b = D.sasrec_batch(seed, n_p99, cfg.seq_len, cfg.n_items, 1)
+            sb = {"seq_ids": b["seq_ids"], "cand": rng.integers(
+                1, cfg.n_items, (n_p99, 200)).astype(np.int32)}
+
+            def serve(m, t):
+                return R.sasrec_score(m, cfg, t["seq_ids"], t["cand"])
+
+            q = {"seq_ids": b["seq_ids"][:1]}
+            cand = None
+
+            def retrieve(m, t, c=None):
+                s = R.sasrec_score(m, cfg, t["seq_ids"])
+                return s if c is None else s[:, :c]
+        elif name == "din":
+            b = D.din_batch(seed, n_p99, cfg.seq_len, cfg.n_items,
+                            cfg.n_context, cfg.n_context_fields)
+            sb = {k: b[k] for k in ("hist_ids", "target_id", "ctx_ids")}
+
+            def serve(m, t):
+                return R.din_forward(m, cfg, t["hist_ids"], t["target_id"],
+                                     t["ctx_ids"])
+
+            q = {"hist_ids": b["hist_ids"][:1], "ctx_ids": b["ctx_ids"][:1]}
+            cand = rng.permutation(cfg.n_items)[:n_cand].astype(np.int32)
+
+            def retrieve(m, t, c=None):
+                ids = t["cand"] if c is None else t["cand"][:c]
+                return R.din_score_candidates(m, cfg, t["hist_ids"],
+                                              t["ctx_ids"], ids)
+        else:
+            b = D.xdeepfm_batch(seed, n_p99, cfg.n_fields,
+                                cfg.vocab_per_field)
+            sb = {"field_ids": b["field_ids"]}
+
+            def serve(m, t):
+                return R.xdeepfm_forward(m, cfg, t["field_ids"])
+            retrieve = None
+
+        with torch.inference_mode():
+            sd = on(sb, dev)
+            y, walls, launches = _walls(counters, lambda: serve(model, sd))
+            need(not any(launches.values()), f"{name} serve_p99: launches "
+                 f"{launches}")
+            need(bool(torch.isfinite(y).all().item()),
+                 f"{name} serve_p99: not finite")
+            s_err = _rel(y[:RECSYS_SLICE], serve(cpu_model, on(
+                sb, "cpu", RECSYS_SLICE)))
+            need(s_err <= 1e-5, f"{name} serve_p99: card vs CPU {s_err}")
+            rep["serve_p99"] = {"batch": n_p99, "walls_s": walls,
+                                "cpu_rel_err": s_err}
+            if retrieve is not None:
+                qb = dict(q) if cand is None else dict(q, cand=cand)
+                qd = on(qb, dev)
+
+                def run():
+                    return torch.topk(retrieve(model, qd), 100, dim=-1)
+
+                (vals, idx), rwalls, launches = _walls(counters, run)
+                n_items = cfg.n_items if cand is None else len(cand)
+                need(not any(launches.values())
+                     and bool(torch.isfinite(vals).all().item()),
+                     f"{name} retrieval_cand: launches {launches}")
+                r_err = _rel(retrieve(model, qd, 4096),
+                             retrieve(cpu_model, on(qb, "cpu"), 4096))
+                need(r_err <= 1e-5, f"{name} retrieval_cand: first 4096 "
+                     f"candidates, card vs CPU {r_err}")
+                rep["retrieval_cand"] = {"candidates": n_items,
+                                         "walls_s": rwalls,
+                                         "cpu_rel_err_4096": r_err}
+                if trace_dir and name == "din":
+                    rep["retrieval_cand"]["profile"] = profile_path(
+                        f"{name}_retrieval_cand", run, trace_dir)
+                del qd, vals, idx
+            del sd, y
+
+        # train_batch: two AdamW steps
+        B = RECSYS_TRAIN_BATCH[name]
+        tb = {"sasrec": lambda: D.sasrec_batch(seed, B, cfg.seq_len,
+                                               cfg.n_items, cfg.n_negatives),
+              "din": lambda: D.din_batch(seed, B, cfg.seq_len, cfg.n_items,
+                                         cfg.n_context,
+                                         cfg.n_context_fields),
+              "xdeepfm": lambda: D.xdeepfm_batch(
+                  seed, B, cfg.n_fields, cfg.vocab_per_field)}[name]()
+        loss = {"sasrec": R.sasrec_loss, "din": R.din_loss,
+                "xdeepfm": R.xdeepfm_loss}[name]
+        keys = list(tb)
+        l_cpu = float(loss(cpu_model, cfg, *on(tb, "cpu", RECSYS_SLICE)
+                           .values())[0])
+        with torch.no_grad():
+            l_card = float(loss(model, cfg, *on(tb, dev, RECSYS_SLICE)
+                                .values())[0])
+        l_err = abs(l_card - l_cpu) / abs(l_cpu)
+        need(l_err <= 1e-5, f"{name} train slice loss: card {l_card} vs "
+                            f"CPU {l_cpu}")
+        td = on(tb, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt = opt_init(W.recsys_leaves(model), OptConfig(
+            lr=1e-3, warmup_steps=0, decay_steps=2))
+        step = make_train_step(lambda bt: loss(model, cfg,
+                                               *(bt[k] for k in keys)), opt)
+        losses, step_s = [], []
+        for _ in range(2):
+            m, w, launches = _launches(counters, lambda: step(td))
+            need(not any(launches.values()), f"{name} train: launches "
+                 f"{launches}")
+            losses.append(float(m["loss"]))
+            step_s.append(w)
+        peak = torch.cuda.max_memory_allocated(dev)
+        need(np.isfinite(losses).all(), f"{name} train: losses {losses}")
+        rep["train"] = {"batch": B, "losses": losses, "step_s": step_s,
+                        "examples_per_s": B / step_s[-1],
+                        "peak_alloc_bytes": peak,
+                        "cpu_slice_loss_rel_err": l_err}
+        if trace_dir:
+            rep["train"]["profile"] = profile_path(
+                f"{name}_train", lambda: step(td), trace_dir)
+        say(f"phase recsys_models: {name} ({n_params} params, init "
+            f"{init_s:.2f} s): serve_p99 x {n_p99} walls "
+            f"{[w * 1e3 for w in walls]} ms (card vs CPU {s_err:.3g}); "
+            + (f"retrieval_cand 1 x {n_items} top-100 walls "
+               f"{[w * 1e3 for w in rep['retrieval_cand']['walls_s']]} ms "
+               f"(first 4096 vs CPU "
+               f"{rep['retrieval_cand']['cpu_rel_err_4096']:.3g}); "
+               if retrieve is not None else "")
+            + f"train_batch {B}, AdamW, 2 steps: losses {losses}, walls "
+            f"{[w * 1e3 for w in step_s]} ms, {B / step_s[-1]:.1f} "
+            f"examples/s, peak {peak} B ({peak / 1e9:.3f} GB); slice loss "
+            f"card vs CPU {l_err:.3g}")
+        out[name] = rep
+        del model, cpu_model, opt, step, td, m
+        torch.cuda.empty_cache()
+
+    # The screened retrieval beside the exact one, two-tower _FULL.
+    tcfg = get_arch("two-tower-retrieval").config_fn()
+    tt = R.twotower_init(tcfg, seed=seed, device=dev)
+    b = D.twotower_batch(seed, 1, tcfg.n_users, tcfg.n_items,
+                         tcfg.n_user_hist)
+    args = [torch.from_numpy(b[k]).to(dev)
+            for k in ("user_id", "hist_ids", "hist_mask")]
+    cand = torch.from_numpy(np.random.default_rng(seed).permutation(
+        tcfg.n_items)[:n_cand].astype(np.int32)).to(dev)
+    runs = {"exact": lambda: R.retrieval_scores(tt, tcfg, *args, cand,
+                                                topk=100),
+            "screened": lambda: R.retrieval_scores_screened(
+                tt, tcfg, *args, cand, topk=100,
+                shortlist=SCREEN_SHORTLIST)}
+    walls = {k: [] for k in runs}
+    res = {}
+    with torch.inference_mode():
+        for k, fn in runs.items():
+            fn()                                         # warm-up
+        for _ in range(5):
+            for k, fn in runs.items():
+                res[k], w, launches = _launches(counters, fn)
+                need(launches["embedding_bag"] == 1, f"retrieval {k}: "
+                     f"embedding_bag launched {launches['embedding_bag']}")
+                walls[k].append(w)
+    (ve, ie), (vs, is_) = res["exact"], res["screened"]
+    need(torch.equal(ie, is_), "screened retrieval: top-100 ids differ "
+                               "from the exact path's")
+    v_err = (vs - ve).abs().max().item()
+    need(v_err <= 1e-5, f"screened retrieval: scores differ ({v_err})")
+    med = {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
+    say(f"phase recsys_models: two-tower retrieval_cand 1 x {n_cand}, top "
+        f"100: exact walls {[w * 1e3 for w in walls['exact']]} ms, screened "
+        f"(bf16 screen, shortlist {SCREEN_SHORTLIST}) walls "
+        f"{[w * 1e3 for w in walls['screened']]} ms; medians "
+        f"{med['exact']:.3f} / {med['screened']:.3f} ms "
+        f"({med['exact'] / med['screened']:.2f}x); top-100 ids equal, "
+        f"scores within {v_err:.3g}")
+    out["screened"] = {"candidates": n_cand, "shortlist": SCREEN_SHORTLIST,
+                       "walls_s": walls, "median_ms": med,
+                       "score_err": v_err}
+    if trace_dir:
+        with torch.inference_mode():
+            out["screened"]["profile"] = {
+                k: profile_path(f"retrieval_{k}", fn, trace_dir)
+                for k, fn in runs.items()}
+    del tt, args, cand, res
+    torch.cuda.empty_cache()
+    return {"report": out}
 
 
 # ---------------------------------------------------------------------------
@@ -2978,6 +3419,14 @@ def main() -> int:
     report["timing"]["flash_attention_moe"] = timed(
         "timing_moe", phase_timing_moe, dev, paths["serve_moe"])
     paths["serve_moe"].pop("qkv")
+    torch.cuda.empty_cache()
+    trace_dir = Path(args.profile) if args.profile else None
+    report["train_moe"] = timed("train_moe", phase_train_moe, dev, counters,
+                                args.seed, smi_line, trace_dir)["report"]
+    torch.cuda.empty_cache()
+    report["recsys_models"] = timed("recsys_models", phase_recsys_models,
+                                    dev, counters, args.seed, smi_line,
+                                    trace_dir)["report"]
     torch.cuda.empty_cache()
     # Last: a failed device assert leaves the context unusable.
     report["checked"] = timed("checked", phase_checked, dev)

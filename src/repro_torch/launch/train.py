@@ -3,14 +3,15 @@ saves (port of ``repro.launch.train``).
 
     python -m repro_torch.launch.train --smoke --device cpu --steps 20
 
-Picks an arch (``--arch``), builds its (possibly reduced) config and runs
-AdamW train steps on the synthetic LM stream with:
+Picks an arch (``--arch``: any LM arch, dense or MoE, GQA or MLA, full
+or sliding-window attention), builds its (possibly reduced) config and
+runs AdamW train steps on the synthetic LM stream with:
 
 * checkpoint/restart (``--resume`` restores the latest step; the data is
   regenerated from (seed, step), so a restart replays the exact stream);
 * async checkpoint writes in the JAX package's format and layout
-  (parameters stacked under ``dense_layers``), so each package restores
-  the other's checkpoints.
+  (parameters stacked under ``dense_layers`` and, for MoE stacks,
+  ``moe_layers``), so each package restores the other's checkpoints.
 
 One card, no mesh or sharding (as ``launch.serve``): it runs on the
 CUDA device unless ``--device cpu``.  The step loop runs inside the
@@ -51,14 +52,8 @@ def train_lm(cfg: T.LMConfig, *, steps: int = 200, batch: int = 8,
 
     ``params`` (a JAX ``init_params`` tree, numpy or tensor leaves) sets
     the initial weights; ``None`` draws seeded ones (``init_params``).
-    Dense, full-attention stacks only: MoE, MLA and sliding windows serve
-    but do not train yet (ROADMAP.md Queue 1)."""
-    for flag, what in ((cfg.moe, "MoE"), (cfg.mla, "MLA"),
-                       (cfg.sliding_window, "sliding-window attention")):
-        if flag:
-            raise NotImplementedError(
-                f"{cfg.name}: training {what} is not ported yet (ROADMAP.md "
-                "Queue 1: training for MoE, MLA and sliding windows)")
+    Every stack trains: dense GQA, sliding windows, MLA and MoE (the
+    loss adds ``moe_aux_weight`` times the summed aux loss)."""
     dev = resolve_device(device)
     data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, batch=batch,
                                     seq_len=seq_len, seed=seed))
@@ -138,8 +133,8 @@ def main(argv=None) -> None:
     spec = get_arch(args.arch)
     if spec.family != "lm":
         raise SystemExit("repro_torch.launch.train drives LM archs; the "
-                         "two-tower loss trains through "
-                         "train.train_step.make_train_step")
+                         "recsys losses (two-tower, SASRec, DIN, xDeepFM) "
+                         "train through train.train_step.make_train_step")
     cfg = spec.smoke_config_fn() if args.smoke else spec.config_fn(None)
     over: Dict[str, Any] = {"dtype": "float32", "remat": "none"}
     if args.n_layers:

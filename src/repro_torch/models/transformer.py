@@ -8,9 +8,9 @@ MoE and shared experts behind ``first_k_dense`` dense layers
 are an ``nn.ModuleList`` run in a Python loop where the JAX package
 scans two stacked pytrees (``dense_layers``, then ``moe_layers``); the
 weights keep the JAX names and shapes, one layer per module
-(``models.weights`` stacks and unstacks them).  Gradients through the
-MoE dispatch and MLA are not yet held against the JAX package (ROADMAP.md
-Queue 1): the trainer takes dense stacks.
+(``models.weights`` stacks and unstacks them).  Every stack trains:
+``loss_fn``'s gradients through the MoE dispatch, MLA and the window
+mask are held against ``jax.value_and_grad``.
 
 Training (``forward``/``loss_fn``) attends through
 ``layers.chunked_attention``, as the JAX trainer does, and maps
@@ -91,7 +91,6 @@ class LMConfig:
     def param_dtype(self) -> torch.dtype:
         return L.DTYPES[self.dtype]
 
-
     @property
     def mla_dims(self) -> L.MLADims:
         return L.MLADims(self.d_model, self.n_heads, self.q_lora,
@@ -109,6 +108,45 @@ class LMConfig:
         """Leading dense layers (the JAX ``dense_layers`` stack); the rest
         are MoE layers (``moe_layers``)."""
         return self.first_k_dense if self.moe else self.n_layers
+
+    def param_count(self) -> int:
+        """Total parameters: the size of the ``init_params`` tree, counted
+        from the shapes (the JAX ``param_count`` traces its init)."""
+        d, H = self.d_model, self.n_heads
+        if self.mla:
+            m = self.mla_dims
+            dq = m.d_nope + m.d_rope
+            q = (d * m.q_lora + m.q_lora + m.q_lora * H * dq if m.q_lora
+                 else d * H * dq)
+            attn = (q + d * (m.kv_lora + m.d_rope) + m.kv_lora
+                    + m.kv_lora * H * (m.d_nope + m.d_v) + H * m.d_v * d)
+        else:
+            Dh, KH = self.head_dim, self.n_kv_heads
+            attn = 2 * d * (H + KH) * Dh
+            if self.qkv_bias:
+                attn += (H + 2 * KH) * Dh
+        dense = 2 * d + attn + 3 * d * self.d_ff
+        moe = 0
+        if self.moe:
+            e = self.moe_dims
+            moe = (2 * d + attn + d * e.n_experts
+                   + 3 * d * e.d_ff * (e.n_experts + e.n_shared))
+        heads = 1 if self.tie_embeddings else 2
+        return (self.n_dense_layers * dense
+                + (self.n_layers - self.n_dense_layers) * moe
+                + heads * self.padded_vocab * d + d)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only): the
+        JAX ``active_param_count``, the N of a step's 6 N T flops."""
+        if not self.moe:
+            return self.param_count()
+        total = self.param_count()
+        f = self.moe_d_ff or self.d_ff
+        n_moe_layers = self.n_layers - self.first_k_dense
+        per_expert = 3 * self.d_model * f
+        inactive = n_moe_layers * (self.n_experts - self.top_k) * per_expert
+        return total - inactive
 
 
 class DecoderLayer(nn.Module):

@@ -9,7 +9,9 @@ from such a tree (numpy arrays or tensors; bf16 numpy arrays from
 ``ml_dtypes`` are reinterpreted bit for bit), ``*_leaves`` list a
 model's parameters as the JAX package's leaves (``(path, parts,
 stacked)``, what ``train.optimizer`` and the checkpoints work on), and
-``*_to_numpy`` give the JAX tree back.  Nothing here imports JAX.
+``*_to_numpy`` give the JAX tree back: ``lm_*`` for the LMs and
+``recsys_*`` for the recsys models (two-tower, SASRec, DIN, xDeepFM).
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -99,25 +101,6 @@ def lm_from_numpy(cfg: T.LMConfig, tree: Tree, device: DeviceLike = None,
                            lm_head)
 
 
-def twotower_from_numpy(cfg: R.TwoTowerConfig, tree: Tree,
-                        device: DeviceLike = None,
-                        trainable: bool = False) -> R.TwoTower:
-    """The port's two-tower model holding the weights of a JAX
-    ``twotower_init`` tree (numpy or tensor leaves)."""
-    dev = resolve_device(device)
-
-    def tower(layers):
-        return torch.nn.ModuleList(
-            R._Linear(_tensor(lp["w"], dev), _tensor(lp["b"], dev),
-                      trainable)
-            for lp in layers)
-
-    return R.TwoTower(
-        R.Embedding(_tensor(tree["user_emb"]["table"], dev), trainable),
-        R.Embedding(_tensor(tree["item_emb"]["table"], dev), trainable),
-        tower(tree["user_tower"]), tower(tree["item_tower"]))
-
-
 def _stacked(prefix: str, layers) -> List[Leaf]:
     """The stacked leaves of ``layers`` (all of one kind): the JAX paths
     under ``prefix``, which are the attribute paths in the port's modules,
@@ -131,7 +114,13 @@ def _stacked(prefix: str, layers) -> List[Leaf]:
               for lp in layers], True) for path in paths]
 
 
-def _all_leaves(model: T.TransformerLM) -> List[Leaf]:
+def lm_leaves(model: T.TransformerLM) -> List[Leaf]:
+    """The model's parameters as the JAX ``init_params`` leaves, in its
+    leaf order (``dense_layers``, ``embed``, ``final_norm``, ``lm_head``,
+    ``moe_layers``): each ``dense_layers`` and ``moe_layers`` leaf is
+    stacked from its layers, so a stacked expert leaf is ``(L, E, d, f)``
+    to the optimizers.  Every stack: GQA or MLA, dense or MoE (the
+    router fp32 whatever the model's dtype, as in the JAX package)."""
     layers = list(model.layers)
     moe = [lp for lp in layers if isinstance(lp.mlp, L.MoE)]
     dense = layers[:len(layers) - len(moe)]
@@ -143,32 +132,28 @@ def _all_leaves(model: T.TransformerLM) -> List[Leaf]:
     return out + _stacked("moe_layers", moe)
 
 
-def lm_leaves(model: T.TransformerLM) -> List[Leaf]:
-    """The model's parameters as the JAX ``init_params`` leaves, in its
-    leaf order: each ``dense_layers`` leaf is stacked from the layers.
-    Dense GQA stacks only: training MoE and MLA stacks (the trainer's
-    leaves, gradients through the dispatch) is ROADMAP.md Queue 1's
-    next item."""
-    for lp in model.layers:
-        if isinstance(lp.mlp, L.MoE) or isinstance(lp.attn, L.MLA):
-            raise NotImplementedError(
-                "training MoE/MLA stacks is not ported yet (ROADMAP.md "
-                "Queue 1: training for MoE, MLA and sliding windows); "
-                "lm_to_numpy carries their weights")
-    return _all_leaves(model)
+def recsys_from_numpy(tree: Tree, device: DeviceLike = None,
+                      trainable: bool = False) -> R.ParamTree:
+    """The port's recsys model holding the weights of a JAX
+    ``sasrec_init`` / ``din_init`` / ``xdeepfm_init`` / ``twotower_init``
+    tree (numpy or tensor leaves): the same tree as a
+    ``recsys.ParamTree``."""
+    dev = resolve_device(device)
+    return R.ParamTree(tree_map(lambda a: _tensor(a, dev), tree), trainable)
 
 
-def twotower_leaves(model: R.TwoTower) -> List[Leaf]:
-    """The model's parameters as the JAX ``twotower_init`` leaves, in its
-    leaf order."""
-    def tower(name):
-        return [(f"{name}/{i}/{k}", [getattr(lp, k)], False)
-                for i, lp in enumerate(getattr(model, name))
-                for k in ("b", "w")]
-    return ([("item_emb/table", [model.item_emb.table], False)]
-            + tower("item_tower")
-            + [("user_emb/table", [model.user_emb.table], False)]
-            + tower("user_tower"))
+def recsys_leaves(model: torch.nn.Module) -> List[Leaf]:
+    """A recsys model's parameters (a ``ParamTree``: SASRec, DIN,
+    xDeepFM, two-tower) as its JAX tree's leaves, in the JAX leaf
+    order."""
+    tree = tree_from_paths((name.replace(".", "/"), p)
+                           for name, p in model.named_parameters())
+    return [(path, [p], False) for path, p in flatten_with_paths(tree)]
+
+
+def recsys_to_numpy(model: torch.nn.Module) -> Tree:
+    """The JAX ``*_init`` tree (numpy leaves) of a recsys model."""
+    return tree_map(_numpy, leaves_to_tree(recsys_leaves(model)))
 
 
 def leaves_to_tree(leaves: List[Leaf]):
@@ -209,9 +194,4 @@ def _numpy(t: Tensor) -> np.ndarray:
 def lm_to_numpy(model: T.TransformerLM) -> Tree:
     """The JAX ``init_params`` tree (numpy leaves) of the model, MoE and
     MLA stacks included."""
-    return tree_map(_numpy, leaves_to_tree(_all_leaves(model)))
-
-
-def twotower_to_numpy(model: R.TwoTower) -> Tree:
-    """The JAX ``twotower_init`` tree (numpy leaves) of the model."""
-    return tree_map(_numpy, leaves_to_tree(twotower_leaves(model)))
+    return tree_map(_numpy, leaves_to_tree(lm_leaves(model)))

@@ -786,13 +786,13 @@ def test_twotower_train_step_launches_the_bag_kernel(cuda_device):
     from repro_torch.configs import get_arch
     from repro_torch.data.recsys_data import twotower_batch
     from repro_torch.models import recsys as R
-    from repro_torch.models.weights import twotower_leaves
+    from repro_torch.models.weights import recsys_leaves
     from repro_torch.train.optimizer import OptConfig, opt_init
     from repro_torch.train.train_step import make_train_step
 
     cfg = get_arch("two-tower-retrieval").smoke_config_fn()
     model = R.twotower_init(cfg, seed=0, device=cuda_device, trainable=True)
-    opt = opt_init(twotower_leaves(model), OptConfig(lr=1e-2,
+    opt = opt_init(recsys_leaves(model), OptConfig(lr=1e-2,
                                                      warmup_steps=0))
     b = twotower_batch(0, 64, cfg.n_users, cfg.n_items, cfg.n_user_hist)
     batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in b.items()}
@@ -832,3 +832,100 @@ def test_train_lm_step_on_card_matches_cpu(cuda_device):
         assert s1 == s2 and abs(a - b) <= 1e-4 * abs(b)
     for k, v in cpu["final"].items():
         assert abs(card["final"][k] - v) <= 1e-4 * max(abs(v), 1e-30), k
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-236b"])
+def test_moe_train_lm_step_on_card_matches_cpu(cuda_device, arch):
+    """Two ``train_lm`` steps at the MoE smoke configs on the card (the
+    loop under the purity guard: the dispatch's sort, ``searchsorted``
+    and ``index_add_`` and their backward never wait for the card) and
+    on the CPU, from the same weights and batches, TF32 off: losses and
+    every final metric (aux loss, grad norm) within 1e-4 relative.  The
+    MoE combine and the embedding gradient add with atomics on the card,
+    so the two agree to rounding, not bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.weights import lm_to_numpy
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_arch(arch).smoke_config_fn()
+    params = lm_to_numpy(T.init_params(cfg, seed=5, device="cpu"))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        out[str(dev)] = train_lm(cfg, steps=2, batch=2, seq_len=48,
+                                 log_every=1, log_fn=lambda *_: 0,
+                                 device=dev, params=params)
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    for (s1, a), (s2, b) in zip(card["history"], cpu["history"],
+                                strict=True):
+        assert s1 == s2 and abs(a - b) <= 1e-4 * abs(b)
+    assert cpu["final"]["aux"] > 0
+    for k, v in cpu["final"].items():
+        assert abs(card["final"][k] - v) <= 1e-4 * max(abs(v), 1e-30), k
+
+
+@pytest.mark.parametrize("name", ["sasrec", "din", "xdeepfm"])
+def test_recsys_models_on_card_match_cpu(cuda_device, name):
+    """SASRec, DIN and xDeepFM at their smoke configs: the loss and every
+    gradient on the card within 1e-5 of the CPU's (of each tensor's
+    largest entry, floored at 1e-3 of the model's largest: DIN's
+    attention output bias has an exactly zero gradient, rounding noise
+    on both), and no kernel of the port launched."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_data as D
+    from repro_torch.models import recsys as R
+    from repro_torch.models import weights as W
+
+    cfg = get_arch(name).smoke_config_fn()
+    init = {"sasrec": R.sasrec_init, "din": R.din_init,
+            "xdeepfm": R.xdeepfm_init}[name]
+    loss_fn = {"sasrec": R.sasrec_loss, "din": R.din_loss,
+               "xdeepfm": R.xdeepfm_loss}[name]
+    b = {"sasrec": lambda: D.sasrec_batch(1, 64, cfg.seq_len, cfg.n_items,
+                                          cfg.n_negatives),
+         "din": lambda: D.din_batch(1, 64, cfg.seq_len, cfg.n_items,
+                                    cfg.n_context, cfg.n_context_fields),
+         "xdeepfm": lambda: D.xdeepfm_batch(1, 64, cfg.n_fields,
+                                            cfg.vocab_per_field)}[name]()
+    tree = W.recsys_to_numpy(init(cfg, seed=2, device="cpu"))
+    got = {}
+    before = (embedding_bag.launches, flash_attention.launches)
+    for dev in ("cpu", cuda_device):
+        model = W.recsys_from_numpy(tree, dev, trainable=True)
+        leaves = W.recsys_leaves(model)
+        loss, _ = loss_fn(model, cfg, *(torch.from_numpy(v).to(dev)
+                                        for v in b.values()))
+        grads = torch.autograd.grad(loss, [ps[0] for _, ps, _ in leaves])
+        got[str(dev)] = [loss.detach().cpu()] + [g.cpu() for g in grads]
+    assert (embedding_bag.launches, flash_attention.launches) == before
+    cpu, card = got["cpu"], got[str(cuda_device)]
+    floor = 1e-3 * max(g.abs().max().item() for g in cpu[1:])
+    for a, b_ in zip(card, cpu, strict=True):
+        scale = max(b_.abs().max().item(), floor)
+        assert (a - b_).abs().max().item() <= 1e-5 * scale
+
+
+def test_screened_retrieval_on_card_matches_the_exact_path(cuda_device):
+    """``retrieval_scores_screened`` on the card (the bf16 screen on the
+    tensor cores, the fp32 rescoring, the bag kernel once): with a
+    shortlist that holds the exact top-k, the ids equal
+    ``retrieval_scores``' and the scores are within 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys_data import twotower_batch
+    from repro_torch.models import recsys as R
+
+    cfg = get_arch("two-tower-retrieval").smoke_config_fn()
+    tt = R.twotower_init(cfg, seed=4, device=cuda_device)
+    b = twotower_batch(4, 1, cfg.n_users, cfg.n_items, cfg.n_user_hist)
+    args = [torch.from_numpy(b[k]).to(cuda_device)
+            for k in ("user_id", "hist_ids", "hist_mask")]
+    cand = torch.randperm(cfg.n_items, generator=torch.Generator()
+                          .manual_seed(4)).to(torch.int32).to(cuda_device)
+    before = embedding_bag.launches
+    vs, ids = R.retrieval_scores_screened(tt, cfg, *args, cand, topk=10,
+                                          shortlist=128)
+    assert embedding_bag.launches == before + 1
+    ve, ie = R.retrieval_scores(tt, cfg, *args, cand, topk=10)
+    assert torch.equal(ids, ie)
+    assert (vs - ve).abs().max().item() <= 1e-5

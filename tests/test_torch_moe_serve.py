@@ -32,6 +32,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.models.weights import lm_from_numpy, lm_leaves, lm_to_numpy
+from repro_torch.tree import flatten_with_paths
 
 REL = 1e-5
 ARCHS = {"mixtral": jmx._SMOKE, "deepseek": jds._SMOKE}
@@ -360,7 +361,7 @@ def test_forward_and_loss_match_jax(arch):
 def test_weights_round_trip(arch):
     """lm_from_numpy then lm_to_numpy gives the JAX tree back, leaf for
     leaf (MoE and MLA keys, the dense_layers/moe_layers split); the
-    trainer's leaves refuse the stack."""
+    trainer's leaves list the JAX tree's leaf paths in its order."""
     jcfg = ARCHS[arch]
     params, _ = JT.init_params(jax.random.PRNGKey(2), jcfg)
     tree = jax.tree.map(np.asarray, params)
@@ -372,8 +373,8 @@ def test_weights_round_trip(arch):
     for path, a in want.items():
         assert got[path].dtype == a.dtype and np.array_equal(got[path], a), \
             path
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm_leaves(model)
+    assert [p for p, _, _ in lm_leaves(model)] == \
+        [p for p, _ in flatten_with_paths(tree)]
     with pytest.raises(ValueError, match="moe_layers"):
         lm_from_numpy(_tcfg(jcfg), {k: v for k, v in tree.items()
                                     if k != "moe_layers"}, device="cpu")

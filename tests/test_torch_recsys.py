@@ -20,7 +20,7 @@ from repro.models import recsys as JR
 from repro_torch.data import recsys_data as tdata
 from repro_torch.kernels import segment_embed as tse
 from repro_torch.models import recsys as TR
-from repro_torch.models.weights import twotower_from_numpy
+from repro_torch.models.weights import recsys_from_numpy
 
 TOL = 1e-5
 
@@ -29,8 +29,8 @@ def _models(seed=0):
     cfg = jtt._SMOKE
     params, _ = JR.twotower_init(jax.random.PRNGKey(seed), cfg)
     tcfg = TR.TwoTowerConfig(**dataclasses.asdict(cfg))
-    model = twotower_from_numpy(tcfg, jax.tree.map(np.asarray, params),
-                                device="cpu")
+    model = recsys_from_numpy(jax.tree.map(np.asarray, params),
+                              device="cpu")
     return cfg, params, tcfg, model
 
 
@@ -72,10 +72,22 @@ def test_embedding_bag_matches_jax_model_function(combiner):
 
 
 def test_max_combiner_waits_for_a_later_slice():
-    _, _, _, model = _models()
-    ids = torch.zeros((2, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.embedding_bag(model.item_emb, ids, None, "max")
+    """The ``max`` combiner, once left for a later slice, is ported (plain
+    PyTorch, as JAX computes it in jnp): equal to the JAX model function
+    with a mask (an all-masked bag gives ``finfo.min``) and without."""
+    cfg, params, _, model = _models()
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, cfg.n_items, (6, 9)).astype(np.int32)
+    mask = rng.random((6, 9)) < 0.5
+    mask[3] = False
+    for m in (mask, None):
+        want = JR.embedding_bag(params["item_emb"], jnp.asarray(ids),
+                                None if m is None else jnp.asarray(m),
+                                "max")
+        got = TR.embedding_bag(model.item_emb, torch.from_numpy(ids),
+                               None if m is None else torch.from_numpy(m),
+                               "max")
+        assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 def test_user_and_item_embed_match_jax():

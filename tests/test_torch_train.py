@@ -413,8 +413,8 @@ def _tt_models(seed=0):
     cfg = jtt._SMOKE
     params, _ = JR.twotower_init(jax.random.PRNGKey(seed), cfg)
     tcfg = TR.TwoTowerConfig(**dataclasses.asdict(cfg))
-    model = TW.twotower_from_numpy(tcfg, jax.tree.map(np.asarray, params),
-                                   device="cpu", trainable=True)
+    model = TW.recsys_from_numpy(jax.tree.map(np.asarray, params),
+                                 device="cpu", trainable=True)
     return cfg, params, tcfg, model
 
 
@@ -441,7 +441,7 @@ def test_twotower_loss_and_grads_match_jax(seed, batch):
     _close(m["ce"], float(jm["ce"]), 1e-5, "ce")
     assert float(m["in_batch_acc"]) == pytest.approx(float(
         jm["in_batch_acc"]))
-    leaves = TW.twotower_leaves(model)
+    leaves = TW.recsys_leaves(model)
     grads = torch.autograd.grad(loss, [ps[0] for _, ps, _ in leaves])
     jflat = dict(flatten_with_paths(jax.tree.map(np.asarray, jg)))
     assert sorted(jflat) == sorted(p for p, _, _ in leaves)
@@ -451,11 +451,11 @@ def test_twotower_loss_and_grads_match_jax(seed, batch):
 
 def test_twotower_to_numpy_round_trip_and_leaf_order():
     cfg, params, tcfg, model = _tt_models(2)
-    tree = TW.twotower_to_numpy(model)
+    tree = TW.recsys_to_numpy(model)
     want = jax.tree.map(np.asarray, params)
     assert [p for p, _ in flatten_with_paths(tree)] == \
         [p for p, _ in flatten_with_paths(want)] == \
-        [p for p, _, _ in TW.twotower_leaves(model)]
+        [p for p, _, _ in TW.recsys_leaves(model)]
     for (p, a), (_, b) in zip(flatten_with_paths(tree),
                               flatten_with_paths(want), strict=True):
         assert a.dtype == b.dtype and np.array_equal(a, b), p

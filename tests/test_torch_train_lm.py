@@ -1,12 +1,15 @@
 """The port's LM training path held against the JAX package on the CPU:
 ``rmsnorm`` and its hand-written VJP, ``chunked_attention`` and its
 gradients, ``loss_fn`` and every parameter gradient for the three dense
-``_SMOKE`` configs under each ``remat`` mode, ``train_lm`` against the
-JAX trainer, checkpoints the trainers read across the packages, and the
-weight converters.  JAX draws the weights; they pass across as numpy.
+``_SMOKE`` configs and the two MoE ones (mixtral: sliding window and
+MoE; deepseek-v2: MLA, shared experts and a leading dense layer) under
+each ``remat`` mode, ``train_lm`` against the JAX trainer, checkpoints
+the trainers read across the packages, and the weight converters.  JAX
+draws the weights; they pass across as numpy.
 
 Tolerances found (fp32, this CPU): the loss agrees within 1e-6 relative
-and every gradient within 2e-6 of its tensor's largest entry; the stated
+and every gradient within 2e-6 of its tensor's largest entry (2.7e-6 at
+the MoE smoke configs, whose aux loss agrees within 1.2e-7); the stated
 bounds are 1e-5 for both (XLA and torch sum the matmuls and the softmax
 in other orders).  bf16 (the train_4k setting) is held more loosely:
 see its test.  bf16 rmsnorm agrees within one bf16 ulp (2^-7
@@ -26,7 +29,9 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs import command_r_plus_104b as jcr
+from repro.configs import deepseek_v2_236b as jds
 from repro.configs import granite_3_8b as jgr
+from repro.configs import mixtral_8x22b as jmx
 from repro.configs import qwen1_5_0_5b as jqwen
 from repro.launch import train as jtrain
 from repro.models import layers as JL
@@ -45,7 +50,8 @@ from repro_torch.tree import flatten_with_paths
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-5
 JCFGS = {"qwen": jqwen._SMOKE, "granite": jgr._SMOKE,
-         "command-r": jcr._SMOKE}
+         "command-r": jcr._SMOKE, "mixtral": jmx._SMOKE,
+         "deepseek": jds._SMOKE}
 
 
 def _rel_err(got, want) -> float:
@@ -158,11 +164,13 @@ def test_chunked_attention_offset_valid_len_and_window():
 @functools.lru_cache(maxsize=None)
 def _jax_loss_and_grads(arch):
     """One jitted value_and_grad per config (the JAX numbers do not
-    depend on remat)."""
+    depend on remat).  Sequences of 40, or 80 under a sliding window (past
+    mixtral-smoke's window of 32 and across its attention chunks of
+    64)."""
     jcfg = dataclasses.replace(JCFGS[arch], remat="none")
     params, _ = JT.init_params(jax.random.PRNGKey(7), jcfg)
     rng = np.random.default_rng(11)
-    B, S = 3, 40
+    B, S = 3, 80 if jcfg.sliding_window else 40
     tokens = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
     labels = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
     labels[0, :5] = -1
@@ -187,7 +195,11 @@ def test_loss_fn_and_grads_match_jax(arch, remat):
     assert abs(float(loss.detach()) - jloss) <= LOSS_TOL * abs(jloss)
     for k in ("ce", "ppl"):
         assert abs(float(m[k]) - jm[k]) <= LOSS_TOL * abs(jm[k]), k
-    assert float(m["aux"]) == jm["aux"] == 0.0
+    if cfg.moe:                # the Switch aux loss, summed over layers
+        assert jm["aux"] > 0
+        assert abs(float(m["aux"].detach()) - jm["aux"]) <= LOSS_TOL * jm["aux"]
+    else:
+        assert float(m["aux"]) == jm["aux"] == 0.0
     leaves = TW.lm_leaves(model)
     assert [p for p, _, _ in leaves] == list(jgrads)
     parts = [p for _, ps, _ in leaves for p in ps]
