@@ -104,13 +104,25 @@ before any rank is spawned, and then (TF32 off throughout):
    step on the card against one on the CPU (within 1e-4) and a restart
    from a checkpoint that replays its losses;
 14. runs SASRec, DIN and xDeepFM at their full widths
-   (``phase_recsys_models``): ``serve_p99`` and (SASRec, DIN)
-   ``retrieval_cand`` walls, two AdamW steps at ``train_batch`` (xDeepFM
-   cut to 49,152), the card's outputs on a slice against the CPU's;
-   then the screened two-tower retrieval (bf16 screen of 1,000,000
-   candidates, fp32 rescoring of a 4096 shortlist) beside the exact one,
-   top-100 ids equal;
-15. last, the checked build runs phase 1's flash sweep (each output equal
+   (``phase_recsys_models``): ``serve_p99`` and ``retrieval_cand`` walls
+   (xDeepFM's 1,000,000 candidate rows scored in blocks of 32,768), two
+   AdamW steps at ``train_batch`` (xDeepFM cut to 49,152), the card's
+   outputs on a slice against the CPU's; then the screened two-tower
+   retrieval (bf16 screen of 1,000,000 candidates, fp32 rescoring of a
+   4096 shortlist) beside the exact one, top-100 ids equal;
+15. trains GraphSAGE at full width (``phase_gnn``, PERF.md §4's GNN
+   cells (a)-(e)): ``ogb_products`` full batch (2,449,408 nodes,
+   61,859,840 edges, 3 AdamW steps: ms a step, peak memory, device busy
+   share) and ``minibatch_lg`` sampled on the Reddit-scale graph
+   (232,965 nodes, 114,615,892 edges, 1024 seeds, fanouts 15-10, 3
+   steps: set-up, sample, upload and step walls apart); the small shapes
+   card against CPU (loss within 1e-4, every gradient within 1e-4 of its
+   largest entry, deterministic algorithms); ``make_sharded_loss`` equal
+   to ``loss_full`` within 1e-5 at (1,1) under NCCL at ``ogb_products``
+   and in gloo worlds (2,1), (1,2), (2,2) sharing the card; int8
+   quantization on the card bit-equal to the CPU's, and the compressed
+   all-reductions in a gloo world with a ``pod`` dimension of 2;
+16. last, the checked build runs phase 1's flash sweep (each output equal
    to the normal build's bit for bit) and its ES and N-list sweeps again
    (a failed device assert traps and fails the run), then the N-list
    sweeps with the merge's adv mask in its packed form, whose reading is
@@ -2120,10 +2132,12 @@ def phase_recsys_models(dev, counters, seed, smi_line,
     """SASRec, DIN and xDeepFM at their ``_FULL`` widths (seeded random
     weights, fp32) and the screened two-tower retrieval.  Each model:
     ``serve_p99`` (512 users: SASRec against 200 candidates each, DIN and
-    xDeepFM one target each) and, SASRec and DIN, ``retrieval_cand`` (one
-    user over the 1,000,000-item catalog: ``sasrec_score`` of the whole
-    catalog, ``din_score_candidates`` in blocks of 65,536; top 100) walls,
-    five each after a warm-up; two AdamW steps through
+    xDeepFM one target each) and ``retrieval_cand`` (SASRec and DIN: one
+    user over the 1,000,000-item catalog, ``sasrec_score`` of the whole
+    catalog, ``din_score_candidates`` in blocks of 65,536; xDeepFM:
+    1,000,000 candidate rows, ``xdeepfm_score_candidates`` in blocks of
+    32,768, ranked by ``_topk_ordered``; top 100) walls, five each (three
+    for xDeepFM) after a warm-up; two AdamW steps through
     ``make_train_step`` at ``train_batch`` 65,536 (xDeepFM 49,152), the
     second step's wall and the peak memory; then the card's outputs on
     the first 8 rows (serving logits, the train batch's loss) and on the
@@ -2204,7 +2218,14 @@ def phase_recsys_models(dev, counters, seed, smi_line,
 
             def serve(m, t):
                 return R.xdeepfm_forward(m, cfg, t["field_ids"])
-            retrieve = None
+
+            q = {}
+            cand = D.xdeepfm_batch(seed + 1, n_cand, cfg.n_fields,
+                                   cfg.vocab_per_field)["field_ids"]
+
+            def retrieve(m, t, c=None):
+                ids = t["cand"] if c is None else t["cand"][:c]
+                return R.xdeepfm_score_candidates(m, cfg, ids)
 
         with torch.inference_mode():
             sd = on(sb, dev)
@@ -2223,9 +2244,13 @@ def phase_recsys_models(dev, counters, seed, smi_line,
                 qd = on(qb, dev)
 
                 def run():
-                    return torch.topk(retrieve(model, qd), 100, dim=-1)
+                    scores = retrieve(model, qd)
+                    if name == "xdeepfm":     # one score a candidate row
+                        return R._topk_ordered(scores, 100)
+                    return torch.topk(scores, 100, dim=-1)
 
-                (vals, idx), rwalls, launches = _walls(counters, run)
+                (vals, idx), rwalls, launches = _walls(
+                    counters, run, n=3 if name == "xdeepfm" else 5)
                 n_items = cfg.n_items if cand is None else len(cand)
                 need(not any(launches.values())
                      and bool(torch.isfinite(vals).all().item()),
@@ -2348,6 +2373,381 @@ def phase_recsys_models(dev, counters, seed, smi_line,
                 k: profile_path(f"retrieval_{k}", fn, trace_dir)
                 for k, fn in runs.items()}
     del tt, args, cand, res
+    torch.cuda.empty_cache()
+    return {"report": out}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: GraphSAGE training, the sharded loss and int8 compression
+# ---------------------------------------------------------------------------
+
+GNN_STEPS = 3
+GNN_BATCH_NODES = 1024      # minibatch_lg's batch_nodes
+GNN_F_PAD = 112             # ogb_products' 100 features padded to /16
+GNN_CPU_TOL = 1e-4          # (c) card against the CPU
+GNN_SHARDED_TOL = 1e-5      # (d) the sharded loss against loss_full
+
+
+def _gnn_graph(shape, seed):
+    """The ``GNN_SHAPES`` cell's synthetic graph (``data.graph_data``; the
+    padded node and edge counts where the shape has them, else the raw
+    ones) and its host wall."""
+    from repro_torch.configs import GNN_SHAPES
+    from repro_torch.data import graph_data as GD
+    d = GNN_SHAPES[shape].dims
+    t0 = time.perf_counter()
+    if shape == "molecule":
+        g = GD.gen_batched_molecules(d["batch_graphs"], d["nodes_per_graph"],
+                                     d["edges_per_graph"], d["d_feat"],
+                                     d["n_classes"], seed=seed)
+    else:
+        n = d.get("n_nodes", d["raw_nodes"])
+        e = d.get("n_edges", d["raw_edges"])
+        g = GD.gen_powerlaw_graph(n, e / n, d["d_feat"], d["n_classes"],
+                                  seed=seed)
+    return g, time.perf_counter() - t0
+
+
+def _gnn_mask(n):
+    """Every node labelled but every third (the loss's mask)."""
+    m = np.ones(n, bool)
+    m[::3] = False
+    return m
+
+
+def _gnn_grads(model, loss):
+    """The gradient of every leaf of a GraphSAGE model, by JAX path."""
+    import torch
+    from repro_torch.models import weights as W
+    leaves = W.gnn_leaves(model)
+    grads = torch.autograd.grad(loss, [ps[0] for _, ps, _ in leaves])
+    return {p: g for (p, _, _), g in zip(leaves, grads, strict=True)}
+
+
+def _grad_err(got, want) -> float:
+    """The largest, over leaves, of max |got - want| over the leaf's
+    largest |want| (both moved to the CPU)."""
+    return max(_rel(got[k], want[k]) for k in want)
+
+
+def phase_gnn(dev, counters, seed, smi_line, trace_dir=None) -> dict:
+    """GraphSAGE (graphsage-reddit) at full width, fp32, seeded weights,
+    AdamW at the JAX cell's lr 3e-4 through ``make_train_step`` (PERF.md
+    §4's cells (a)-(e)):
+
+    (a) ``ogb_products`` full-batch: 2,449,408 x 100 features, 61,859,840
+        edges, 47 classes, 3 steps through ``loss_full``: finite losses,
+        ms a step, peak allocated, device busy share of one more step;
+    (b) ``minibatch_lg`` sampled: the Reddit-scale graph (232,965 nodes,
+        114,615,892 edges, 602 features, 41 classes), 1024 seeds,
+        fanouts (15, 10), 3 steps on fresh batches through
+        ``loss_sampled``: set-up (graph, CSR), sample, upload and step
+        walls apart;
+    (c) ``full_graph_sm``, ``molecule`` and the sampled smoke config:
+        loss and gradients on the card (deterministic algorithms) against
+        the CPU's from the same weights;
+    (d) ``make_sharded_loss``: (1,1) under NCCL in this process at
+        ``ogb_products`` (features padded to 112), gloo worlds (2,1),
+        (1,2), (2,2) sharing the card at ``full_graph_sm`` (1433 features
+        padded to 1434): loss and every gradient against ``loss_full``'s
+        on the card (``launch.gnn_ranks.rank_checks``); at
+        ``full_graph_sm`` both sides under deterministic algorithms;
+    (e) ``quantize_int8`` on the card bit-equal to the CPU's;
+        ``compressed_psum_int8`` and ``compressed_crosspod_allreduce`` in
+        the gloo world of 2 on a (pod 2, data 1, model 1) mesh against
+        the sums of the CPU's payloads, and a replicated leaf's cross-pod
+        mean within the JAX test's 0.05 of itself.
+
+    No kernel of the port is on these paths: every launch count is read
+    around (a) and (b) and must be 0."""
+    import dataclasses
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.data import graph_data as GD
+    from repro_torch.distributed.compression import quantize_int8
+    from repro_torch.launch.forcedevices import free_port, run_ranks
+    from repro_torch.launch.gnn_ranks import rank_checks
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import gnn as G
+    from repro_torch.models import weights as W
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_step import make_train_step
+
+    spec = get_arch("graphsage-reddit")
+    out = {"card": smi_line}
+    opt_cfg = OptConfig(kind="adamw", lr=3e-4)
+    zero = {c.__name__: 0 for c in counters}
+
+    def trained(model, loss):
+        return make_train_step(loss, opt_init(W.gnn_leaves(model), opt_cfg))
+
+    # (a) ogb_products, full batch
+    cfg = spec.config_fn("ogb_products")
+    g, gen_s = _gnn_graph("ogb_products", seed)
+    n = g.x.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = tuple(torch.from_numpy(a).to(dev) for a in (
+        g.x, g.edge_src, g.edge_dst, g.labels, np.ones(n, bool)))
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    model, _ = G.init_params(cfg, seed=seed, device=dev, trainable=True)
+    step = trained(model, lambda b: G.loss_full(model, cfg, *b))
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls, launches = [], [], []
+    for _ in range(GNN_STEPS):
+        m, w, ln = _launches(counters, lambda: step(batch))
+        losses.append(float(m["loss"]))
+        walls.append(w)
+        launches.append(ln)
+    peak = torch.cuda.max_memory_allocated(dev)
+    need(all(ln == zero for ln in launches), f"gnn (a): launches {launches}")
+    need(bool(np.isfinite(losses).all()), f"gnn (a): losses {losses}")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        busy = _busy(lambda: step(batch), Path(tmp))
+    e = g.edge_src.shape[0]
+    out["ogb_products"] = {
+        "nodes": n, "edges": e, "graph_s": gen_s, "upload_s": up_s,
+        "losses": losses, "step_s": walls, "peak_alloc_bytes": peak,
+        "busy": busy, "launches": launches[-1], "edge_chunks": 1}
+    if trace_dir:
+        out["ogb_products"]["profile"] = profile_path(
+            "gnn_ogb_products_step", lambda: step(batch), trace_dir)
+    say(f"phase gnn (a): ogb_products full batch ({n} nodes, {e} edges, "
+        f"d_feat {cfg.d_feat}; graph {gen_s:.2f} s, upload {up_s:.3f} s): "
+        f"AdamW, {GNN_STEPS} steps: losses {losses}, walls "
+        f"{[w * 1e3 for w in walls]} ms, peak {peak} B "
+        f"({peak / 1e9:.3f} GB); one more step under the profiler: wall "
+        f"{busy['wall_ms']:.3f} ms, device busy "
+        f"{busy['device_busy_ms']:.3f} ms, idle share {busy['idle_share']}; "
+        f"launches {launches[-1]}")
+    del step, m
+    torch.cuda.empty_cache()
+
+    # (d) the sharded loss at (1,1), NCCL, ogb_products padded to 112
+    cfg_p = dataclasses.replace(cfg, d_feat=GNN_F_PAD)
+    model_p, _ = G.init_params(cfg_p, seed=seed + 1, device=dev,
+                               trainable=True)
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh((1, 1))
+        parts = G.shard_graph(batch[0], *batch[1:], 0, 0, 1, 1, GNN_F_PAD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_s = G.make_sharded_loss(mesh, cfg_p, n, GNN_F_PAD)(model_p,
+                                                                *parts)
+        grads_s = _gnn_grads(model_p, loss_s)
+        torch.cuda.synchronize()
+        sh_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    loss_f, _ = G.loss_full(model_p, cfg_p, parts[0], *batch[1:])
+    grads_f = _gnn_grads(model_p, loss_f)
+    l_err = abs(loss_s.item() - loss_f.item()) / abs(loss_f.item())
+    g_err = _grad_err(grads_s, grads_f)
+    need(l_err <= GNN_SHARDED_TOL and g_err <= GNN_SHARDED_TOL,
+         f"gnn (d) (1,1) ogb_products: sharded vs loss_full: loss "
+         f"{l_err}, gradients {g_err}")
+    out["sharded"] = {"1x1": {"backend": "nccl", "f_pad": GNN_F_PAD,
+                              "loss_rel_err": l_err, "grad_rel_err": g_err,
+                              "loss_and_grads_s": sh_s}}
+    say(f"phase gnn (d): make_sharded_loss (1,1) NCCL at ogb_products, "
+        f"features padded to {GNN_F_PAD}: loss {loss_s.item()} vs "
+        f"loss_full {loss_f.item()} ({l_err:.3g}), gradients within "
+        f"{g_err:.3g} of each leaf's largest; loss + gradients "
+        f"{sh_s * 1e3:.1f} ms")
+    del batch, parts, model_p, model, grads_s, grads_f, loss_s, loss_f, g
+    torch.cuda.empty_cache()
+
+    # (b) minibatch_lg: the Reddit-scale graph, sampled
+    cfg = spec.config_fn("minibatch_lg")
+    g, gen_s = _gnn_graph("minibatch_lg", seed)
+    n = g.x.shape[0]
+    t0 = time.perf_counter()
+    sampler = GD.NeighborSampler(g.edge_src, g.edge_dst, n, seed=seed)
+    csr_s = time.perf_counter() - t0
+    model, _ = G.init_params(cfg, seed=seed, device=dev, trainable=True)
+    step = trained(model, lambda b: G.loss_sampled(model, cfg, *b))
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(GNN_STEPS):
+        seeds = rng.integers(0, n, GNN_BATCH_NODES)
+        t0 = time.perf_counter()
+        feats, masks = sampler.sample_batch(seeds, tuple(cfg.fanouts), g.x)
+        labels = g.labels[seeds]
+        t1 = time.perf_counter()
+        b = (tuple(torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+                   for f in feats),
+             tuple(torch.from_numpy(np.ascontiguousarray(m)).to(dev)
+                   for m in masks),
+             torch.from_numpy(labels).to(dev))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        m, w, ln = _launches(counters, lambda: step(b))
+        need(ln == zero, f"gnn (b): launches {ln}")
+        rows.append({"sample_s": t1 - t0, "upload_s": t2 - t1,
+                     "step_s": w, "loss": float(m["loss"]),
+                     "upload_bytes": sum(int(x.nbytes) for x in
+                                         b[0] + b[1])})
+    need(all(np.isfinite(r["loss"]) for r in rows), f"gnn (b): {rows}")
+    e = g.edge_src.shape[0]
+    out["minibatch_lg"] = {"nodes": n, "edges": e, "graph_s": gen_s,
+                           "csr_s": csr_s, "steps": rows}
+    say(f"phase gnn (b): minibatch_lg sampled ({n} nodes, {e} edges, "
+        f"d_feat {cfg.d_feat}, batch {GNN_BATCH_NODES}, fanouts "
+        f"{tuple(cfg.fanouts)}): set-up {gen_s + csr_s:.2f} s (graph "
+        f"{gen_s:.2f}, CSR {csr_s:.2f}); per step sample "
+        f"{[r['sample_s'] * 1e3 for r in rows]} ms, upload "
+        f"{[r['upload_s'] * 1e3 for r in rows]} ms "
+        f"({rows[0]['upload_bytes']} B), step "
+        f"{[r['step_s'] * 1e3 for r in rows]} ms, losses "
+        f"{[r['loss'] for r in rows]}")
+    del sampler, step, model, b, g, m
+    torch.cuda.empty_cache()
+
+    # (c) card against CPU at the small shapes, deterministic sums
+    cells = {}
+    for name in ("full_graph_sm", "molecule", "sampled-smoke"):
+        if name == "sampled-smoke":
+            cfg = spec.smoke_config_fn()
+            gs = GD.gen_powerlaw_graph(500, 8.0, cfg.d_feat, cfg.n_classes,
+                                       seed=seed)
+            feats, masks = GD.NeighborSampler(
+                gs.edge_src, gs.edge_dst, 500, seed=seed).sample_batch(
+                    np.arange(64), tuple(cfg.fanouts), gs.x)
+            host = (tuple(np.ascontiguousarray(f) for f in feats),
+                    tuple(np.ascontiguousarray(m) for m in masks),
+                    gs.labels[:64])
+
+            def to(where, h=host):
+                return (tuple(torch.from_numpy(a).to(where) for a in h[0]),
+                        tuple(torch.from_numpy(a).to(where) for a in h[1]),
+                        torch.from_numpy(h[2]).to(where))
+            loss_of = G.loss_sampled
+        else:
+            cfg = spec.config_fn(name)
+            gs, _ = _gnn_graph(name, seed)
+            host = (gs.x, gs.edge_src, gs.edge_dst, gs.labels,
+                    _gnn_mask(gs.x.shape[0]))
+
+            def to(where, h=host):
+                return tuple(torch.from_numpy(a).to(where) for a in h)
+            loss_of = G.loss_full
+        cpu_model, _ = G.init_params(cfg, seed=seed, device="cpu",
+                                     trainable=True)
+        card_model = W.gnn_from_numpy(W.gnn_to_numpy(cpu_model), dev,
+                                      trainable=True)
+        l_cpu, _ = loss_of(cpu_model, cfg, *to("cpu"))
+        g_cpu = _gnn_grads(cpu_model, l_cpu)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            l_card, _ = loss_of(card_model, cfg, *to(dev))
+            g_card = _gnn_grads(card_model, l_card)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        l_err = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+        g_err = _grad_err(g_card, g_cpu)
+        need(l_err <= GNN_CPU_TOL and g_err <= GNN_CPU_TOL,
+             f"gnn (c) {name}: card vs CPU loss {l_err}, gradients {g_err}")
+        cells[name] = {"loss_rel_err": l_err, "grad_rel_err": g_err}
+    out["card_vs_cpu"] = cells
+    say("phase gnn (c): card vs CPU (deterministic algorithms), loss / "
+        "largest gradient error: " + ", ".join(
+            f"{k} {v['loss_rel_err']:.3g} / {v['grad_rel_err']:.3g}"
+            for k, v in cells.items()))
+
+    # (e) quantize_int8 on the card against the CPU
+    xr = np.random.default_rng(seed)
+    qx = {"normal": (xr.normal(size=(4096, 1024)) * 3).astype(np.float32),
+          "ties": ((np.arange(-20, 21, dtype=np.float32) + 0.5)
+                   * np.float32(127 / 20.5))}
+    for k, x in qx.items():
+        qc, sc = quantize_int8(torch.from_numpy(x))
+        qd, sd = quantize_int8(torch.from_numpy(x).to(dev))
+        need(torch.equal(qd.cpu(), qc) and torch.equal(
+            sd.cpu().view(torch.int32), sc.view(torch.int32)),
+             f"gnn (e): quantize_int8 {k} on the card differs from the CPU")
+
+    # (d) gloo worlds sharing the card at full_graph_sm, and (e) the
+    # compressed all-reductions in the world of 2
+    cfg = spec.config_fn("full_graph_sm")
+    f_pad = cfg.d_feat + 1                  # 1434 divides model 2
+    cfg_p = dataclasses.replace(cfg, d_feat=f_pad)
+    gs, _ = _gnn_graph("full_graph_sm", seed)
+    xp = np.zeros((gs.x.shape[0], f_pad), np.float32)
+    xp[:, :cfg.d_feat] = gs.x
+    graph = (xp, gs.edge_src, gs.edge_dst, gs.labels,
+             _gnn_mask(gs.x.shape[0]))
+    ref_model, _ = G.init_params(cfg_p, seed=seed, device=dev,
+                                 trainable=True)
+    tree = W.gnn_to_numpy(ref_model)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        l_ref, _ = G.loss_full(ref_model, cfg_p, *(
+            torch.from_numpy(a).to(dev) for a in graph))
+        g_ref = _gnn_grads(ref_model, l_ref)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    l_ref = l_ref.item()
+    rep = np.linspace(-2, 2, 256, dtype=np.float32).reshape(16, 16)
+    trees = [{"w": (xr.normal(size=(64, 32)) * (r + 1)).astype(np.float32),
+              "rep": rep} for r in range(2)]
+    worlds = {2: ([((2, 1), cfg_p, tree, graph, f_pad),
+                   ((1, 2), cfg_p, tree, graph, f_pad)],
+                  ((2, 1, 1), ("pod", "data", "model"), trees)),
+              4: ([((2, 2), cfg_p, tree, graph, f_pad)], None)}
+    for world, (jobs, comp) in worlds.items():
+        t0 = time.perf_counter()
+        res = run_ranks(rank_checks, world, (jobs, comp, str(dev)),
+                        timeout_s=RANK_TIMEOUT_S, threads=0)
+        wall = time.perf_counter() - t0
+        for j, (shape, *_rest) in enumerate(jobs):
+            errs = []
+            for r, got in enumerate(res):
+                loss, grads = got["sharded"][j]
+                l_err = abs(loss - l_ref) / abs(l_ref)
+                g_err = max(_rel(torch.from_numpy(grads[k]), g_ref[k])
+                            for k in g_ref)
+                need(l_err <= GNN_SHARDED_TOL and g_err <= GNN_SHARDED_TOL,
+                     f"gnn (d) {shape} rank {r}: sharded vs loss_full: "
+                     f"loss {l_err}, gradients {g_err}")
+                errs.append((l_err, g_err))
+            out["sharded"][f"{shape[0]}x{shape[1]}"] = {
+                "backend": "gloo", "ranks": world, "f_pad": f_pad,
+                "loss_rel_err": max(a for a, _ in errs),
+                "grad_rel_err": max(b for _, b in errs),
+                "world_wall_s": wall}
+        if comp is not None:
+            qs = [{k: quantize_int8(torch.from_numpy(v)) for k, v in t.items()}
+                  for t in trees]
+            c_err = 0.0
+            for got in res:
+                psum, cross = got["comp"]
+                for k in trees[0]:
+                    acc = sum(q[k][0].to(torch.int32) for q in qs)
+                    want = acc.to(torch.float32) * (
+                        (qs[0][k][1] + qs[1][k][1]) / 2.0)
+                    for a, b in ((psum[k], want), (cross[k], want / 2.0)):
+                        c_err = max(c_err, _rel(torch.from_numpy(a), b))
+                need(float(np.abs(cross["rep"] - rep).max()) < 0.05,
+                     "gnn (e): the replicated leaf's cross-pod mean is not "
+                     "within 0.05 of itself")
+            need(c_err <= 1e-6, f"gnn (e): compressed all-reductions off "
+                                f"the CPU payloads' sums by {c_err}")
+            out["compression"] = {"quantize_bit_equal": True,
+                                  "allreduce_rel_err": c_err}
+        say(f"phase gnn (d): gloo world of {world} on the card "
+            f"({wall:.1f} s): " + ", ".join(
+                f"{k} loss {v['loss_rel_err']:.3g}, gradients "
+                f"{v['grad_rel_err']:.3g}" for k, v in out["sharded"].items()
+                if v.get("ranks") == world)
+            + (f"; (e) quantize_int8 card = CPU bit for bit, compressed "
+               f"psum / cross-pod mean within {c_err:.3g} of the CPU "
+               f"payloads' sums" if comp is not None else ""))
+    del ref_model, g_ref
     torch.cuda.empty_cache()
     return {"report": out}
 
@@ -3427,6 +3827,9 @@ def main() -> int:
     report["recsys_models"] = timed("recsys_models", phase_recsys_models,
                                     dev, counters, args.seed, smi_line,
                                     trace_dir)["report"]
+    torch.cuda.empty_cache()
+    report["gnn"] = timed("gnn", phase_gnn, dev, counters, args.seed,
+                          smi_line, trace_dir)["report"]
     torch.cuda.empty_cache()
     # Last: a failed device assert leaves the context unusable.
     report["checked"] = timed("checked", phase_checked, dev)

@@ -1,6 +1,7 @@
 """Config schema (port of the matching part of ``repro.configs.base``):
-architectures x input shapes.  The port keeps the LM and RecSys shape
-sets, the families its ported archs belong to."""
+architectures x input shapes.  The port keeps the LM, GNN and RecSys
+shape sets, the families its ported archs belong to (dims padded as the
+JAX package pads them, the unpadded source numbers kept alongside)."""
 
 from __future__ import annotations
 
@@ -48,6 +49,28 @@ LM_SHAPES: Dict[str, ShapeDef] = {
                            dict(kv_len=32768, batch=128)),
     "long_500k": ShapeDef("long_500k", "decode",
                           dict(kv_len=524288, batch=1)),
+}
+
+GNN_SHAPES: Dict[str, ShapeDef] = {
+    # cora-like full batch (2708 nodes / 10556 edges padded to /32)
+    "full_graph_sm": ShapeDef("full_graph_sm", "train_full",
+                              dict(n_nodes=2816, n_edges=10752, d_feat=1433,
+                                   n_classes=7, raw_nodes=2708,
+                                   raw_edges=10556)),
+    # reddit sampled training; assigned cell fanout is 15-10
+    "minibatch_lg": ShapeDef("minibatch_lg", "train_sampled",
+                             dict(batch_nodes=1024, fanouts=(15, 10),
+                                  d_feat=602, n_classes=41,
+                                  raw_nodes=232965, raw_edges=114615892)),
+    "ogb_products": ShapeDef("ogb_products", "train_full",
+                             dict(n_nodes=2449408, n_edges=61859840,
+                                  d_feat=100, n_classes=47,
+                                  raw_nodes=2449029, raw_edges=61859140)),
+    # 128 small graphs as one disjoint union
+    "molecule": ShapeDef("molecule", "train_full",
+                         dict(n_nodes=3840, n_edges=8192, d_feat=32,
+                              n_classes=16, batch_graphs=128,
+                              nodes_per_graph=30, edges_per_graph=64)),
 }
 
 RECSYS_SHAPES: Dict[str, ShapeDef] = {

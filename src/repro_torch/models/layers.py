@@ -1,5 +1,5 @@
 """Transformer blocks (port of ``repro.models.layers``): dense, RMSNorm
-(with the JAX package's hand-written VJP), token embedding, rotary
+(with the JAX package's hand-written VJP), LayerNorm, token embedding, rotary
 embeddings, GQA attention (full or sliding-window) for training, prefill
 and decode, the chunked online-softmax attention, DeepSeek-V2's MLA
 (expanded prefill, absorbed decode over a latent cache), the SwiGLU MLP
@@ -139,6 +139,32 @@ def rmsnorm(p: RMSNorm, x: Tensor, eps: float = 1e-5) -> Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale``: the sum of squares and the
     inverse in fp32, the products in x's type."""
     return _RMSNormFn.apply(x, p.scale, eps)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, scale: Tensor, bias: Tensor, trainable: bool = False):
+        super().__init__()
+        self.scale = _param(scale, trainable)
+        self.bias = _param(bias, trainable)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device=None,
+                   trainable: bool = False) -> Tuple[LayerNorm, Dict]:
+    """Ones and zeros, and the JAX logical axes of the two leaves."""
+    return (LayerNorm(torch.ones((d,), dtype=dtype, device=device),
+                      torch.zeros((d,), dtype=dtype, device=device),
+                      trainable),
+            {"scale": ("embed",), "bias": ("embed",)})
+
+
+def layernorm(p: LayerNorm, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` in fp32, cast
+    back to x's type."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p.scale + p.bias).to(x.dtype)
 
 
 class Embed(nn.Module):

@@ -388,6 +388,24 @@ def xdeepfm_forward(params: ParamTree, cfg: XDeepFMConfig,
     return lin + cin_logit + deep
 
 
+# Candidates an xDeepFM scoring block: its CIN maps (block, H m, D) hold
+# 312 kB an example at the full widths (H 200, m 39, D 10), 10.2 GB for
+# 32,768 candidates; those of 1,000,000 would take 312 GB.
+XDEEPFM_SCORE_BLOCK = 32_768
+
+
+def xdeepfm_score_candidates(params: ParamTree, cfg: XDeepFMConfig,
+                             field_ids: Tensor) -> Tensor:
+    """Score a large candidate set (the ``retrieval_cand`` shape): the
+    (C, m) field rows are scored ``XDEEPFM_SCORE_BLOCK`` at a time through
+    :func:`xdeepfm_forward` (the JAX cell scores all C at once and relies
+    on sharding the candidate axis); (C,) logits."""
+    return torch.cat([xdeepfm_forward(params, cfg,
+                                      field_ids[i:i + XDEEPFM_SCORE_BLOCK])
+                      for i in range(0, field_ids.shape[0],
+                                     XDEEPFM_SCORE_BLOCK)])
+
+
 def xdeepfm_loss(params: ParamTree, cfg: XDeepFMConfig, field_ids: Tensor,
                  labels: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     logits = xdeepfm_forward(params, cfg, field_ids)

@@ -1,10 +1,11 @@
 """Decoder-only LM (port of ``repro.models.transformer``): ``LMConfig``,
 ``init_params``, ``forward`` and ``loss_fn`` (training), ``prefill``,
-``init_cache`` and ``decode_step`` (serving), for every stack the JAX
-package builds: dense GQA (qwen1.5, granite, command-r), sliding-window
-GQA with MoE (mixtral: a ring KV cache of ``window`` slots) and MLA with
-MoE and shared experts behind ``first_k_dense`` dense layers
-(deepseek-v2: a latent cache of ``c_kv`` and ``k_rope``).  The layers
+``init_cache``, ``cache_logical`` and ``decode_step`` (serving), for
+every stack the JAX package builds: dense GQA (qwen1.5, granite,
+command-r), sliding-window GQA with MoE (mixtral: a ring KV cache of
+``window`` slots) and MLA with MoE and shared experts behind
+``first_k_dense`` dense layers (deepseek-v2: a latent cache of ``c_kv``
+and ``k_rope``).  The layers
 are an ``nn.ModuleList`` run in a Python loop where the JAX package
 scans two stacked pytrees (``dense_layers``, then ``moe_layers``); the
 weights keep the JAX names and shapes, one layer per module
@@ -422,6 +423,18 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
              for k, sh in shapes.items()}
     cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
     return cache
+
+
+def cache_logical(cfg: LMConfig) -> Dict[str, Tuple]:
+    """Logical axes for the cache (sharded like activations;
+    ``distributed.sharding``)."""
+    if cfg.mla:
+        return {"c_kv": (None, "batch", "kv_seq", None),
+                "k_rope": (None, "batch", "kv_seq", None),
+                "len": ("batch",)}
+    return {"k": (None, "batch", "kv_seq", "kv_heads", None),
+            "v": (None, "batch", "kv_seq", "kv_heads", None),
+            "len": ("batch",)}
 
 
 def decode_step(model: TransformerLM, cfg: LMConfig, token: Tensor,

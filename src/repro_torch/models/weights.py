@@ -9,8 +9,10 @@ from such a tree (numpy arrays or tensors; bf16 numpy arrays from
 ``ml_dtypes`` are reinterpreted bit for bit), ``*_leaves`` list a
 model's parameters as the JAX package's leaves (``(path, parts,
 stacked)``, what ``train.optimizer`` and the checkpoints work on), and
-``*_to_numpy`` give the JAX tree back: ``lm_*`` for the LMs and
-``recsys_*`` for the recsys models (two-tower, SASRec, DIN, xDeepFM).
+``*_to_numpy`` give the JAX tree back: ``lm_*`` for the LMs,
+``recsys_*`` for the recsys models (two-tower, SASRec, DIN, xDeepFM)
+and ``gnn_*`` for GraphSAGE (the same functions: both are
+``recsys.ParamTree`` objects).
 Nothing here imports JAX.
 """
 
@@ -154,6 +156,13 @@ def recsys_leaves(model: torch.nn.Module) -> List[Leaf]:
 def recsys_to_numpy(model: torch.nn.Module) -> Tree:
     """The JAX ``*_init`` tree (numpy leaves) of a recsys model."""
     return tree_map(_numpy, leaves_to_tree(recsys_leaves(model)))
+
+
+# GraphSAGE's model is a ParamTree of the JAX ``gnn.init_params`` tree,
+# carried across as the recsys models are.
+gnn_from_numpy = recsys_from_numpy
+gnn_leaves = recsys_leaves
+gnn_to_numpy = recsys_to_numpy
 
 
 def leaves_to_tree(leaves: List[Leaf]):

@@ -25,8 +25,16 @@ stacked — ``mu``/``nu`` (AdamW), ``vr``/``vc`` or ``v`` (Adafactor) —
 and the step count is a host integer, so :meth:`state_tree` passes to
 numpy and back in the JAX layout.
 
-``opt_init`` builds the optimizer; its ``step()`` is ``opt_update``: it
-returns ``{"lr", "grad_norm"}`` (the norm a device tensor).  Clipping
+``opt_init(leaves, cfg)`` builds the optimizer; its ``step()`` is an
+update: it returns ``{"lr", "grad_norm"}`` (the norm a device tensor).
+The JAX ``opt_init(params, cfg)`` returns the state tree instead; the
+port keeps the name for the object the trainers use.  The JAX package's
+functional API is here too, as thin wrappers over the classes on trees
+of dicts and lists (no stacked leaves): ``adamw_init`` /
+``adamw_update``, ``adafactor_init`` / ``adafactor_update`` and
+``opt_update(params, grads, state, cfg) -> (params, state, metrics)``,
+which leave their inputs unchanged; ``opt_state_logical`` gives the
+state's logical axes (``distributed.sharding``).  Clipping
 and updates run in place on the device, one leaf at a time, with no host
 sync: the temporaries are a leaf's, never a copy of the whole gradient.
 Gradients come from each part's ``.grad`` or from ``step(grads=...)``
@@ -38,12 +46,12 @@ casts it to fp32).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten_with_paths, tree_from_paths
+from repro_torch.tree import flatten_with_paths, is_axes, tree_from_paths
 
 Tensor = torch.Tensor
 Leaf = Tuple[str, Sequence[Tensor], bool]      # (path, parts, stacked)
@@ -266,3 +274,64 @@ OPTIMIZERS = {"adamw": AdamW, "adafactor": Adafactor}
 def opt_init(leaves: Iterable[Leaf], cfg: OptConfig) -> _LeafOptimizer:
     """The optimizer ``cfg.kind`` over ``leaves``, its state zeros."""
     return OPTIMIZERS[cfg.kind](leaves, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's functional API, over the classes
+# ---------------------------------------------------------------------------
+
+def _init(kind: str, params) -> Dict[str, Any]:
+    leaves = [(path, [p], False) for path, p in flatten_with_paths(params)]
+    return OPTIMIZERS[kind](leaves, OptConfig(kind=kind)).state_tree()
+
+
+def _update(kind: str, params, grads, state, cfg: OptConfig):
+    new = [(path, p.detach().clone())
+           for path, p in flatten_with_paths(params)]
+    opt = OPTIMIZERS[kind]([(path, [p], False) for path, p in new], cfg)
+    opt.load_state_tree(state)
+    g = dict(flatten_with_paths(grads))
+    metrics = opt.step(grads=[g[path].detach().clone() for path, _ in new])
+    return tree_from_paths(new), opt.state_tree(), metrics
+
+
+def adamw_init(params) -> Dict[str, Any]:
+    """``{"mu", "nu"}`` fp32 zeros like ``params`` and ``"step"`` 0."""
+    return _init("adamw", params)
+
+
+def adamw_update(params, grads, state, cfg: OptConfig):
+    """One AdamW step: ``(new params, new state, {"lr", "grad_norm"})``."""
+    return _update("adamw", params, grads, state, cfg)
+
+
+def adafactor_init(params) -> Dict[str, Any]:
+    """``{"v"}`` (``{"vr", "vc"}`` for ``ndim >= 2``, else ``{"v"}``) and
+    ``"step"`` 0."""
+    return _init("adafactor", params)
+
+
+def adafactor_update(params, grads, state, cfg: OptConfig):
+    """One Adafactor step: ``(new params, new state, {"lr",
+    "grad_norm"})``."""
+    return _update("adafactor", params, grads, state, cfg)
+
+
+def opt_update(params, grads, state, cfg: OptConfig):
+    return _update(cfg.kind, params, grads, state, cfg)
+
+
+def opt_state_logical(logical, cfg: OptConfig):
+    """Logical axes for the optimizer state, mirroring param axes."""
+    if cfg.kind == "adamw":
+        return {"mu": logical, "nu": logical, "step": ()}
+
+    def fac(names):
+        if is_axes(names):
+            if len(names) >= 2:
+                return {"vr": names[:-1], "vc": names[:-2] + names[-1:]}
+            return {"v": names}
+        if isinstance(names, dict):
+            return {k: fac(v) for k, v in names.items()}
+        return type(names)(fac(v) for v in names)
+    return {"v": fac(logical), "step": ()}

@@ -49,3 +49,10 @@ def tree_from_paths(items: Iterable[Tuple[str, Any]]):
 def tree_map(fn: Callable[[Any], Any], tree):
     """``fn`` applied to every leaf, the structure kept."""
     return tree_from_paths((p, fn(x)) for p, x in flatten_with_paths(tree))
+
+
+def is_axes(x) -> bool:
+    """A logical-axes leaf: a tuple of axis names or ``None`` (the JAX
+    package's ``is_leaf`` for trees of logical axes)."""
+    return isinstance(x, tuple) and all(n is None or isinstance(n, str)
+                                        for n in x)

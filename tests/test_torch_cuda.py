@@ -929,3 +929,150 @@ def test_screened_retrieval_on_card_matches_the_exact_path(cuda_device):
     ve, ie = R.retrieval_scores(tt, cfg, *args, cand, topk=10)
     assert torch.equal(ids, ie)
     assert (vs - ve).abs().max().item() <= 1e-5
+
+
+def _gnn_case(name):
+    """(config, loss function, batch on a device) of a small GNN cell."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import graph_data as GD
+    from repro_torch.models import gnn as G
+
+    spec = get_arch("graphsage-reddit")
+    if name == "sampled":
+        cfg = spec.smoke_config_fn()
+        g = GD.gen_powerlaw_graph(500, 8.0, cfg.d_feat, cfg.n_classes,
+                                  seed=5)
+        feats, masks = GD.NeighborSampler(g.edge_src, g.edge_dst, 500,
+                                          seed=5).sample_batch(
+            np.arange(64), tuple(cfg.fanouts), g.x)
+
+        def batch(dev):
+            return (tuple(torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+                          for f in feats),
+                    tuple(torch.from_numpy(np.ascontiguousarray(m)).to(dev)
+                          for m in masks),
+                    torch.from_numpy(g.labels[:64]).to(dev))
+        return cfg, G.loss_sampled, batch
+    cfg = spec.config_fn(name)
+    if name == "molecule":
+        g = GD.gen_batched_molecules(128, 30, 64, cfg.d_feat, cfg.n_classes,
+                                     seed=5)
+    else:
+        g = GD.gen_powerlaw_graph(2816, 10752 / 2816, cfg.d_feat,
+                                  cfg.n_classes, seed=5)
+    mask = np.arange(g.x.shape[0]) % 3 != 0
+
+    def batch(dev):
+        return tuple(torch.from_numpy(a).to(dev) for a in
+                     (g.x, g.edge_src, g.edge_dst, g.labels, mask))
+    return cfg, G.loss_full, batch
+
+
+@pytest.mark.parametrize("name", ["full_graph_sm", "molecule", "sampled"])
+def test_gnn_on_card_matches_cpu(cuda_device, name):
+    """GraphSAGE's loss and every gradient on the card within 1e-4 of the
+    CPU's (of the leaf's largest entry), the segment sums' atomics under
+    deterministic algorithms; no kernel of the port launched."""
+    from repro_torch.models import gnn as G
+    from repro_torch.models import weights as W
+
+    cfg, loss_fn, batch = _gnn_case(name)
+    model, _ = G.init_params(cfg, seed=2, device="cpu")
+    tree = W.gnn_to_numpy(model)
+    got = {}
+    before = (embedding_bag.launches, flash_attention.launches)
+    for dev in ("cpu", cuda_device):
+        model = W.gnn_from_numpy(tree, dev, trainable=True)
+        leaves = W.gnn_leaves(model)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss, _ = loss_fn(model, cfg, *batch(dev))
+            grads = torch.autograd.grad(loss, [ps[0] for _, ps, _ in
+                                               leaves])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        got[str(dev)] = [loss.detach().cpu()] + [g.cpu() for g in grads]
+    assert (embedding_bag.launches, flash_attention.launches) == before
+    for a, b in zip(got[str(cuda_device)], got["cpu"], strict=True):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_gnn_sharded_loss_on_card_gives_loss_full(cuda_device):
+    """``make_sharded_loss`` in a gloo world of two ranks sharing the card,
+    meshes (2,1) and (1,2): every rank's loss and gradients within 1e-5
+    of ``loss_full``'s on the card (of each leaf's largest entry), both
+    sides' segment sums under deterministic algorithms, in float64 (the
+    fp32 weights cast).  In fp32 at these seeds node 807's layer-1
+    pre-activation of unit 42 is 6.26e-7, within the two paths' rounding
+    of the ReLU's kink: it falls on the other side of 0 and moves
+    ``layers/0/w_neigh``'s gradient in that unit by 9.95e-4 of its
+    largest entry on every mesh (``python -m
+    repro_torch.launch.gnn_ranks --cases 5:3``); chip_smoke.py phase 15
+    holds the fp32 program on these meshes at its own seed."""
+    import dataclasses
+
+    from repro_torch.launch.forcedevices import run_ranks
+    from repro_torch.launch.gnn_ranks import rank_checks
+    from repro_torch.models import gnn as G
+    from repro_torch.models import weights as W
+    from repro_torch.tree import tree_map
+
+    cfg, _, batch = _gnn_case("full_graph_sm")
+    f_pad = cfg.d_feat + 1
+    cfg = dataclasses.replace(cfg, d_feat=f_pad)
+    tree = W.gnn_to_numpy(G.init_params(cfg, seed=3, device=cuda_device)[0])
+    tree = tree_map(lambda a: a.astype(np.float64), tree)
+    cfg = dataclasses.replace(cfg, dtype="float64")
+    x, src, dst, labels, mask = (t.numpy() for t in batch("cpu"))
+    xp = np.zeros((x.shape[0], f_pad), np.float64)
+    xp[:, :x.shape[1]] = x
+    graph = (xp, src, dst, labels, mask)
+    model = W.gnn_from_numpy(tree, cuda_device, trainable=True)
+    leaves = W.gnn_leaves(model)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, _ = G.loss_full(model, cfg, *(
+            torch.from_numpy(a).to(cuda_device) for a in graph))
+        want = dict(zip([p for p, _, _ in leaves], torch.autograd.grad(
+            loss, [ps[0] for _, ps, _ in leaves]), strict=True))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    jobs = [(shape, cfg, tree, graph, f_pad) for shape in ((2, 1), (1, 2))]
+    res = run_ranks(rank_checks, 2, (jobs, None, str(cuda_device)),
+                    timeout_s=300.0, threads=0)
+    for out in res:
+        for (shape, *_), (got_loss, grads) in zip(jobs, out["sharded"],
+                                                  strict=True):
+            assert abs(got_loss - loss.item()) <= 1e-5 * abs(loss.item())
+            for k, w in want.items():
+                w = w.cpu()
+                err = (torch.from_numpy(grads[k]) - w).abs().max().item()
+                assert err <= 1e-5 * w.abs().max().item(), (shape, k, err)
+
+
+def test_int8_compression_on_card(cuda_device):
+    """``quantize_int8`` on the card bit-equal to the CPU's; the compressed
+    sum and the cross-pod mean in a gloo world of two ranks sharing the
+    card (a (pod 2, data 1, model 1) mesh) equal to the sums of the CPU's
+    payloads."""
+    from repro_torch.distributed.compression import quantize_int8
+    from repro_torch.launch.forcedevices import run_ranks
+    from repro_torch.launch.gnn_ranks import rank_checks
+
+    rng = np.random.default_rng(8)
+    x = (rng.normal(size=(512, 300)) * 3).astype(np.float32)
+    qc, sc = quantize_int8(torch.from_numpy(x))
+    qd, sd = quantize_int8(torch.from_numpy(x).to(cuda_device))
+    assert torch.equal(qd.cpu(), qc)
+    assert torch.equal(sd.cpu().view(torch.int32), sc.view(torch.int32))
+    xs = [{"w": (rng.normal(size=(32, 16)) * (r + 1)).astype(np.float32)}
+          for r in range(2)]
+    res = [out["comp"] for out in run_ranks(
+        rank_checks, 2, ((), ((2, 1, 1), ("pod", "data", "model"), xs),
+                         str(cuda_device)), timeout_s=300.0, threads=0)]
+    qs = [quantize_int8(torch.from_numpy(t["w"])) for t in xs]
+    want = (qs[0][0].to(torch.int32) + qs[1][0].to(torch.int32)).to(
+        torch.float32) * ((qs[0][1] + qs[1][1]) / 2.0)
+    for psum, cross in res:
+        assert torch.equal(torch.from_numpy(psum["w"]), want)
+        assert torch.equal(torch.from_numpy(cross["w"]), want / 2.0)

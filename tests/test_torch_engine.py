@@ -404,7 +404,13 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.configs.mixtral_8x22b',\n"
         "       'repro_torch.configs.deepseek_v2_236b',\n"
         "       'repro_torch.configs.sasrec', 'repro_torch.configs.din',\n"
-        "       'repro_torch.configs.xdeepfm'}\n"
+        "       'repro_torch.configs.xdeepfm',\n"
+        "       'repro_torch.models.gnn', 'repro_torch.data.graph_data',\n"
+        "       'repro_torch.distributed.sharding',\n"
+        "       'repro_torch.distributed.compression',\n"
+        "       'repro_torch.distributed.collectives',\n"
+        "       'repro_torch.launch.gnn_ranks',\n"
+        "       'repro_torch.configs.graphsage_reddit'}\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
         "sys.exit(1 if bad or len(mods) < 12 or new - set(mods) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

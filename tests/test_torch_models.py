@@ -66,8 +66,9 @@ def test_configs_equal_the_jax_package(name):
 def test_get_arch_names_roadmap_for_unported_archs():
     assert get_arch("two-tower-retrieval").family == "recsys"
     assert get_arch("mixtral-8x22b").family == "lm"
+    assert get_arch("graphsage-reddit").family == "gnn"
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("graphsage-reddit")
+        get_arch("fim-eclat")
 
 
 @pytest.mark.parametrize("flag", [dict(moe=True, n_experts=4, top_k=2),
