@@ -122,7 +122,20 @@ before any rank is spawned, and then (TF32 off throughout):
    and in gloo worlds (2,1), (1,2), (2,2) sharing the card; int8
    quantization on the card bit-equal to the CPU's, and the compressed
    all-reductions in a gloo world with a ``pod`` dimension of 2;
-16. last, the checked build runs phase 1's flash sweep (each output equal
+16. holds the analysis tooling against the card (``phase_cells``):
+   qwen1.5-0.5b ``decode_32k`` (batch 16) and ``prefill_32k`` (the
+   largest batch whose fake peak fits), fim-eclat ``mine_128m`` (4096
+   blocks) and two-tower ``serve_p99``, each built with
+   ``launch.cells.build_cell`` fake and real on a 1-rank world: the fake
+   trace's FLOPs equal to the real run's ``FlopCounterMode`` count, its
+   peak within 10% of ``max_memory_allocated``, no collectives, the step
+   (CUDA events) beside ``step_time_lb_s`` under ``H100_SXM``; the
+   round's bound and count against the CPU on two pair chunks; the flash
+   and EmbeddingBag kernels launched; beside them the dry-run of
+   qwen1.5-0.5b's and fim-eclat's cells on the fake 256-rank world and
+   ``hillclimb --target fim`` (processes of their own, no card), and
+   the EmbeddingBag custom op's cost at ``serve_p99``;
+17. last, the checked build runs phase 1's flash sweep (each output equal
    to the normal build's bit for bit) and its ES and N-list sweeps again
    (a failed device assert traps and fails the run), then the N-list
    sweeps with the merge's adv mask in its packed form, whose reading is
@@ -141,6 +154,7 @@ before that line.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import gzip
 import json
 import os
@@ -2100,12 +2114,52 @@ def phase_train_moe(dev, counters, seed, smi_line, trace_dir=None) -> dict:
 # phase 14: SASRec, DIN and xDeepFM, and the screened retrieval
 # ---------------------------------------------------------------------------
 
-RECSYS_TRAIN_BATCH = {"sasrec": 65_536, "din": 65_536,
-                      # the CIN's (B, H m, D) maps: the step holds 1.33 MB
-                      # an example (22.57 GB at 16,384), so 65,536 would
-                      # need ~88 GB; cut to the largest multiple of 16,384
-                      # that fits (PERF.md §4)
-                      "xdeepfm": 49_152}
+def _microbatch_check(dev, name, B, n_mb, seed) -> dict:
+    """At the arch's smoke config, one AdamW step of ``B`` examples taken
+    as ``n_mb`` microbatches on the card against the same step taken
+    whole on the CPU: the step's loss within 1e-5 and its gradient norm
+    within 1e-4 (relative)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_data as D
+    from repro_torch.models import recsys as R
+    from repro_torch.models import weights as W
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_arch(name).smoke_config_fn()
+    tb = D.xdeepfm_batch(seed, B, cfg.n_fields, cfg.vocab_per_field)
+    got = {}
+    for where, mb in ((dev, n_mb), (torch.device("cpu"), 1)):
+        # the same weights on both sides: drawn on the CPU, then moved
+        model = R.xdeepfm_init(cfg, seed=seed, device="cpu",
+                               trainable=True).to(where)
+        opt = opt_init(W.recsys_leaves(model), OptConfig(
+            lr=1e-3, warmup_steps=0, decay_steps=2))
+        t = {k: torch.from_numpy(v).to(where) for k, v in tb.items()}
+        step = make_train_step(lambda bt: R.xdeepfm_loss(
+            model, cfg, bt["field_ids"], bt["labels"]), opt, mb)
+        m = step(t)
+        got[where.type] = (float(m["loss"]), float(m["grad_norm"]))
+    (lc, gc), (lp, gp) = got["cuda"], got["cpu"]
+    rep = {"loss_rel_err": abs(lc - lp) / abs(lp),
+           "grad_norm_rel_err": abs(gc - gp) / abs(gp),
+           "card_loss": lc, "cpu_loss": lp}
+    need(rep["loss_rel_err"] <= 1e-5 and rep["grad_norm_rel_err"] <= 1e-4,
+         f"{name}: {n_mb} microbatches of {B // n_mb} on the card vs one "
+         f"of {B} on the CPU at the smoke config: {rep}")
+    say(f"phase recsys_models: {name} smoke config, {B} examples as {n_mb} "
+        f"x {B // n_mb} on the card vs whole on the CPU: loss rel err "
+        f"{rep['loss_rel_err']:.3g}, grad norm rel err "
+        f"{rep['grad_norm_rel_err']:.3g}")
+    return rep
+
+
+RECSYS_TRAIN_BATCH = {"sasrec": 65_536, "din": 65_536, "xdeepfm": 65_536}
+# The CIN's (B, H m, D) maps hold 1.33 MB an example (22.57 GB at
+# 16,384), so one 65,536 batch would need ~88 GB: xDeepFM takes its
+# train_batch as 2 x 32,768 through make_train_step's microbatches.
+RECSYS_TRAIN_MB = {"xdeepfm": 2}
 RECSYS_SLICE = 8            # rows held against the CPU
 SCREEN_SHORTLIST = 4096
 
@@ -2292,8 +2346,10 @@ def phase_recsys_models(dev, counters, seed, smi_line,
         torch.cuda.reset_peak_memory_stats(dev)
         opt = opt_init(W.recsys_leaves(model), OptConfig(
             lr=1e-3, warmup_steps=0, decay_steps=2))
+        n_mb = RECSYS_TRAIN_MB.get(name, 1)
         step = make_train_step(lambda bt: loss(model, cfg,
-                                               *(bt[k] for k in keys)), opt)
+                                               *(bt[k] for k in keys)), opt,
+                               n_mb)
         losses, step_s = [], []
         for _ in range(2):
             m, w, launches = _launches(counters, lambda: step(td))
@@ -2303,10 +2359,14 @@ def phase_recsys_models(dev, counters, seed, smi_line,
             step_s.append(w)
         peak = torch.cuda.max_memory_allocated(dev)
         need(np.isfinite(losses).all(), f"{name} train: losses {losses}")
-        rep["train"] = {"batch": B, "losses": losses, "step_s": step_s,
+        rep["train"] = {"batch": B, "n_microbatches": n_mb,
+                        "losses": losses, "step_s": step_s,
                         "examples_per_s": B / step_s[-1],
                         "peak_alloc_bytes": peak,
                         "cpu_slice_loss_rel_err": l_err}
+        if n_mb > 1:
+            rep["train"]["microbatch_vs_whole"] = _microbatch_check(
+                dev, name, B, n_mb, seed)
         if trace_dir:
             rep["train"]["profile"] = profile_path(
                 f"{name}_train", lambda: step(td), trace_dir)
@@ -2318,7 +2378,9 @@ def phase_recsys_models(dev, counters, seed, smi_line,
                f"(first 4096 vs CPU "
                f"{rep['retrieval_cand']['cpu_rel_err_4096']:.3g}); "
                if retrieve is not None else "")
-            + f"train_batch {B}, AdamW, 2 steps: losses {losses}, walls "
+            + f"train_batch {B} ({n_mb} microbatch"
+            f"{'es' if n_mb > 1 else ''}), AdamW, 2 steps: losses {losses}, "
+            "walls "
             f"{[w * 1e3 for w in step_s]} ms, {B / step_s[-1]:.1f} "
             f"examples/s, peak {peak} B ({peak / 1e9:.3f} GB); slice loss "
             f"card vs CPU {l_err:.3g}")
@@ -3677,6 +3739,315 @@ def phase_timing_slice3(dev, serve, retrieval, seed) -> dict:
 
 # name, source, the TPU kernel (or jnp function) it replaces, the path
 # whose run supplies its launch count
+# ---------------------------------------------------------------------------
+# phase 16: the analysis tooling's cells, traced fake and run real
+# ---------------------------------------------------------------------------
+
+# (label, arch, shape, dims overrides, the cut one H100's 80 GB forces)
+CARD_CELLS = (
+    ("a", "qwen1.5-0.5b", "decode_32k", {"batch": 16},
+     "batch 128 -> 16 (the MHA cache is 96 KiB a token: 48 GiB)"),
+    ("b", "qwen1.5-0.5b", "prefill_32k", None,
+     "batch 32 -> the largest whose fake peak fits"),
+    ("c", "fim-eclat", "mine_128m", {"n_blocks": 4096},
+     "n_blocks 32,768 -> 4096 (2^24 transactions, a 16 GiB store)"),
+    ("d", "two-tower-retrieval", "serve_p99", {}, "uncut"),
+)
+PREFILL_BATCHES = (32, 24, 16, 12, 8, 4, 2, 1)
+FIM_CHECK_CHUNKS = 2        # pair chunks held against the CPU bit for bit
+DRYRUN_ARCHS = ("qwen1.5-0.5b", "fim-eclat")
+
+
+def _analysis_jobs(outdir: Path):
+    """The dry-run of qwen1.5-0.5b's and fim-eclat's cells on the fake
+    256-rank world, and ``hillclimb --target fim``: processes of their
+    own (the fake world must not share a process with NCCL), started at
+    once, with no card (``CUDA_VISIBLE_DEVICES`` empty: fake tensors)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    jobs = {}
+    for arch in DRYRUN_ARCHS:
+        jobs[f"dryrun {arch}"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+             "single", "--arch", arch, "--jobs", "4", "--outdir",
+             str(outdir / "dryrun")], env=env, cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    jobs["hillclimb fim"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.hillclimb", "--target",
+         "fim", "--outdir", str(outdir / "hillclimb")], env=env,
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return jobs
+
+
+def _prefill_batch(mesh) -> tuple:
+    """The largest ``PREFILL_BATCHES`` entry whose fake trace of
+    ``prefill_32k`` (arguments + the step's peak) fits in 85% of the
+    card, with that trace."""
+    import torch
+    from repro_torch.launch.cells import build_cell, trace_cell
+    cap = 0.85 * (torch.cuda.get_device_properties(0).total_memory
+                  - torch.cuda.memory_allocated())
+    for b in PREFILL_BATCHES:
+        cell = build_cell("qwen1.5-0.5b", "prefill_32k", mesh,
+                          dims_overrides={"batch": b}, device="cuda")
+        tr = trace_cell(cell, mesh)
+        say(f"phase cells: (b) prefill_32k at batch {b}: fake arguments "
+            f"{tr['args_bytes']} B + peak {tr['temp_peak_bytes']} B "
+            f"against {cap:.0f} B")
+        if tr["args_bytes"] + tr["temp_peak_bytes"] <= cap:
+            return b, tr
+    raise AssertionError("prefill_32k fits the card at no batch")
+
+
+def _card_cell(dev, counters, mesh, label, arch, shape, dims, seed,
+               traced=None) -> dict:
+    """One cell built twice with ``build_cell`` on a 1-rank world: traced
+    on fake CUDA tensors, and run on real ones.  The fake FLOP count must
+    equal the real run's ``FlopCounterMode`` count, the fake peak must be
+    within 10% of ``max_memory_allocated`` above what was allocated
+    before, and there are no collectives (all read on the second of two
+    warm-ups).  The step is timed with CUDA events (median of 5 after
+    the warm-ups)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.distributed.sharding import active_mesh, use_rules
+    from repro_torch.launch.cells import args_on_mesh, build_cell, trace_cell
+    from repro_torch.roofline.analysis import H100_SXM, RooflineTerms
+
+    if traced is None:
+        fake = build_cell(arch, shape, mesh, dims_overrides=dims,
+                          device="cuda")
+        traced = trace_cell(fake, mesh)
+    need(not traced["collectives"], f"cell ({label}): collectives on one "
+         f"rank: {traced['collectives'][:4]}")
+    say(f"phase cells: ({label}) fake trace: {traced['flops']} FLOP, "
+        f"{traced['bytes']} B, arguments {traced['args_bytes']} B, peak "
+        f"{traced['temp_peak_bytes']} B")
+    real = build_cell(arch, shape, mesh, dims_overrides=dims, device=dev,
+                      fake=False, seed=seed)
+    with use_rules(real.rules), active_mesh(mesh):
+        args = args_on_mesh(real, mesh)
+    if arch == "fim-eclat":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        store, pairs = args[0], args[1]
+        store.copy_(torch.randint(-2 ** 31, 2 ** 31, store.shape,
+                                  dtype=torch.int64, device=dev,
+                                  generator=g).to(torch.int32))
+        pairs.copy_(torch.randint(0, store.shape[0], pairs.shape,
+                                  dtype=torch.int32, device=dev,
+                                  generator=g))
+
+    def step():
+        return real.step_fn(*args)
+
+    step()
+    # the second warm-up is the measured one: FLOPs, launches and the
+    # peak above what was allocated before it
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with FlopCounterMode(display=False) as fc:
+        out, _, launches = _launches(counters, step)
+    real_flops = fc.get_total_flops()
+    real_peak = torch.cuda.max_memory_allocated(dev) - before
+    # the mining round's (bound, count) are kept for the CPU check; a
+    # serving step's output (prefill: a whole cache) is not held across
+    # the timed steps
+    out = out if arch == "fim-eclat" else None
+    ms = []
+    for _ in range(5):
+        s_ev = torch.cuda.Event(enable_timing=True)
+        e_ev = torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        step()
+        e_ev.record()
+        e_ev.synchronize()
+        ms.append(s_ev.elapsed_time(e_ev))
+    need(traced["flops"] == real_flops, f"cell ({label}) {arch} x {shape}: "
+         f"fake FLOPs {traced['flops']} != real {real_flops}")
+    peak_err = abs(traced["temp_peak_bytes"] - real_peak) / max(real_peak, 1)
+    need(peak_err <= 0.10, f"cell ({label}) {arch} x {shape}: fake peak "
+         f"{traced['temp_peak_bytes']} B vs real {real_peak} B "
+         f"({peak_err:.3f})")
+    # forward-only cells: MODEL_FLOPS = 2 * active params * tokens of the
+    # cut shape (a decode step reads one token a sequence)
+    tokens = 0
+    if arch == "qwen1.5-0.5b":
+        from repro_torch.configs import get_arch, get_shape
+        full = dict(get_shape(get_arch(arch), shape).dims, **(dims or {}))
+        tokens = full["batch"] * full.get("seq", 1)
+    model_flops = 2.0 * real.active_params * tokens
+    terms = RooflineTerms(arch=arch, shape=shape, mesh="1 card", chips=1,
+                          flops_per_chip=traced["flops"],
+                          bytes_per_chip=traced["bytes"],
+                          link_bytes_per_chip=0.0, model_flops=model_flops,
+                          peak_memory_per_chip=traced["args_bytes"]
+                          + traced["temp_peak_bytes"], chip=H100_SXM)
+    med = float(np.median(ms))
+    lb_s = terms.step_time_lower_bound
+    res = {"label": label, "arch": arch, "shape": shape, "dims": dims,
+           "flops": traced["flops"], "bytes": traced["bytes"],
+           "args_bytes": traced["args_bytes"],
+           "fake_temp_peak_bytes": traced["temp_peak_bytes"],
+           "real_temp_peak_bytes": real_peak, "peak_rel_err": peak_err,
+           "step_ms": ms, "step_ms_median": med,
+           "step_ms_spread": max(ms) - min(ms),
+           "step_time_lb_s": lb_s, "bottleneck": terms.bottleneck,
+           "ratio": med / 1e3 / lb_s if lb_s else None,
+           "launches": launches, "out": out, "args": args}
+    return res
+
+
+def phase_cells(dev, counters, seed, smi_line) -> dict:
+    """Phase 16: cells (a)-(d) on the card (``CARD_CELLS``), each built
+    fake and real on a 1-rank world and held fake against real; (c)'s
+    bound and count against the CPU plain path on its first
+    ``FIM_CHECK_CHUNKS`` pair chunks; the flash and EmbeddingBag kernels
+    launched on (b) and (d).  Beside them, in processes of their own, the
+    dry-run of qwen1.5-0.5b's and fim-eclat's cells on the fake 256-rank
+    world and ``hillclimb --target fim``, whose roofline rows and v2's
+    bytes against the baseline's are printed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import make_mining_round
+    from repro_torch.launch.forcedevices import free_port
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.roofline.analysis import format_table, load_records
+
+    outdir = ROOT / "results" / "chip_smoke"
+    shutil.rmtree(outdir, ignore_errors=True)
+    jobs = _analysis_jobs(outdir)
+    out = {"cells": {}}
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh((1, 1))
+        for label, arch, shape, dims, cut in CARD_CELLS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            say(f"phase cells: ({label}) starts with "
+                f"{torch.cuda.memory_allocated(dev)} B allocated")
+            traced = None
+            if dims is None:
+                b, traced = _prefill_batch(mesh)
+                dims = {"batch": b}
+                cut = f"batch 32 -> {b}, the largest whose fake peak fits"
+            t0 = time.perf_counter()
+            r = _card_cell(dev, counters, mesh, label, arch, shape, dims,
+                           seed, traced)
+            r["reduced"] = cut
+            if arch == "fim-eclat":
+                n = FIM_CHECK_CHUNKS * 2048
+                store = r["args"][0].cpu()
+                pairs = r["args"][1][:n].cpu()
+                cpu_b, cpu_c = make_mining_round(mesh)(
+                    store, pairs, torch.zeros(n, dtype=torch.int32))
+                bound, count = (t[:n].cpu() for t in r["out"])
+                need(torch.equal(bound, cpu_b) and torch.equal(count, cpu_c),
+                     f"cell (c): the card's first {n} bounds/counts differ "
+                     "from the CPU plain path")
+                r["cpu_pairs_checked"] = n
+                del store, pairs
+            if arch == "qwen1.5-0.5b" and shape == "prefill_32k":
+                need(r["launches"]["flash_attention"] > 0,
+                     f"cell (b): flash_attention launched no time: "
+                     f"{r['launches']}")
+            if arch == "two-tower-retrieval":
+                need(r["launches"]["embedding_bag"] > 0,
+                     f"cell (d): embedding_bag launched no time: "
+                     f"{r['launches']}")
+            r.pop("out")
+            r.pop("args")
+            torch.cuda.empty_cache()
+            r["wall_s"] = time.perf_counter() - t0
+            out["cells"][label] = r
+            say(f"phase cells: ({label}) {arch} x {shape} [{cut}]: step "
+                f"{r['step_ms_median']:.3f} ms (median of 5, spread "
+                f"{r['step_ms_spread']:.3f} ms), step_time_lb_s "
+                f"{r['step_time_lb_s']:.6g} s under H100_SXM "
+                f"({r['bottleneck']}), ratio {r['ratio']:.3f}; FLOPs "
+                f"{r['flops']} fake = real; peak fake "
+                f"{r['fake_temp_peak_bytes']} B vs real "
+                f"{r['real_temp_peak_bytes']} B ({r['peak_rel_err']:.4f}); "
+                f"args {r['args_bytes']} B; launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }; "
+                f"{smi_line}")
+    finally:
+        dist.destroy_process_group()
+    logs = {}
+    for name, p in jobs.items():
+        try:
+            logs[name] = p.communicate(timeout=600)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs[name] = p.communicate()[0]
+        need(p.returncode == 0, f"{name} failed ({p.returncode}):\n"
+             + logs[name][-3000:])
+    recs = load_records(str(outdir / "dryrun"))
+    need(len(recs) == 6, f"dry-run wrote {len(recs)} records, not 6")
+    for key, rec in recs.items():
+        need(rec.get("ok") and rec.get("fit_equal") in (None, True),
+             f"dry-run {key}: {rec.get('error', rec.get('fit_equal'))}")
+    table = format_table(recs)
+    say("phase cells: dry-run on the fake 256-rank world (H100_SXM "
+        "terms):\n" + table)
+    hc = json.loads((outdir / "hillclimb" / "fim.json").read_text())
+    need(len(hc) == 2 and all("error" not in v for v in hc),
+         f"hillclimb fim: {hc}")
+    say(f"phase cells: hillclimb fim: v2 bytes {hc[1]['bytes_per_chip']:.6e}"
+        f" against the baseline's {hc[0]['bytes_per_chip']:.6e} "
+        f"({hc[1]['bytes_per_chip'] / hc[0]['bytes_per_chip']:.4f}x)")
+    out["dryrun"] = {k: {f: v.get(f) for f in (
+        "ok", "fit_equal", "elapsed_s", "peak_memory_per_chip",
+        "cost_analysis", "collectives", "skip_reason")}
+        for k, v in recs.items()}
+    out["dryrun_table"] = table
+    out["hillclimb_fim"] = hc
+    out["launches"] = {
+        "flash_attention": out["cells"]["b"]["launches"]["flash_attention"],
+        "embedding_bag": out["cells"]["d"]["launches"]["embedding_bag"]}
+    out["bag_wrapper"] = _bag_wrapper_cost(dev, seed)
+    return out
+
+
+def _bag_wrapper_cost(dev, seed, reps: int = 3) -> dict:
+    """The custom op's cost at ``serve_p99`` (512 bags of the two-tower
+    history over its item table): ``ops.embedding_bag`` (through
+    ``repro::embedding_bag``) against the kernel's wrapper called
+    directly, interleaved ``reps`` times, 50 launches each (mean ms)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_embed as SE
+
+    cfg = get_arch("two-tower-retrieval").config_fn()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(cfg.n_items, cfg.embed_dim, device=dev, generator=g)
+    ids = torch.randint(0, cfg.n_items, (512, cfg.n_user_hist),
+                        dtype=torch.int32, device=dev, generator=g)
+    mask = torch.rand(512, cfg.n_user_hist, device=dev, generator=g) < 0.8
+    time_ms = _timer(dev)
+    op, direct = [], []
+    with torch.inference_mode():
+        need(torch.equal(ops.embedding_bag(table, ids, mask),
+                         SE.embedding_bag(table, ids, mask)),
+             "the custom op and the kernel's wrapper disagree")
+        for _ in range(reps):
+            op.append(time_ms(lambda: ops.embedding_bag(table, ids, mask),
+                              50))
+            direct.append(time_ms(lambda: SE.embedding_bag(table, ids,
+                                                           mask), 50))
+    rep = {"op_ms": op, "direct_ms": direct,
+           "added_ms": float(np.median(op) - np.median(direct)),
+           "direct_spread_ms": max(direct) - min(direct)}
+    say(f"phase cells: embedding_bag at serve_p99 through the custom op "
+        f"{op} ms vs the wrapper called directly {direct} ms: added "
+        f"{rep['added_ms']:.4f} ms (direct spread "
+        f"{rep['direct_spread_ms']:.4f} ms)")
+    return rep
+
+
 KERNELS = (
     ("bitmap_intersect_es", "src/repro_torch/csrc/bitmap_intersect.cu",
      "src/repro/kernels/bitmap_intersect.py:113", "main"),
@@ -3831,6 +4202,9 @@ def main() -> int:
     report["gnn"] = timed("gnn", phase_gnn, dev, counters, args.seed,
                           smi_line, trace_dir)["report"]
     torch.cuda.empty_cache()
+    report["cells"] = timed("cells", phase_cells, dev, counters, args.seed,
+                            smi_line)
+    torch.cuda.empty_cache()
     # Last: a failed device assert leaves the context unusable.
     report["checked"] = timed("checked", phase_checked, dev)
     torch.cuda.synchronize()
@@ -3854,6 +4228,11 @@ def main() -> int:
             row["launches_sharded"] = sharded[name]
         if name == "embedding_bag":     # a two-tower train step, apart
             row["launches_train_step"] = paths["train"]["launches"][name]
+            row["launches_cells_d"] = report["cells"]["launches"][name]
+            row["custom_op_added_ms"] = report["cells"]["bag_wrapper"][
+                "added_ms"]
+        if name == "flash_attention":   # phase 16's prefill cell, apart
+            row["launches_cells_b"] = report["cells"]["launches"][name]
         if name == "flash_attention":   # the MoE cells' prefills, apart
             moe_t = report["timing"]["flash_attention_moe"]
             for arch, n in paths["serve_moe"]["launches"].items():

@@ -1,7 +1,11 @@
-"""Config schema (port of the matching part of ``repro.configs.base``):
-architectures x input shapes.  The port keeps the LM, GNN and RecSys
-shape sets, the families its ported archs belong to (dims padded as the
-JAX package pads them, the unpadded source numbers kept alongside)."""
+"""Config schema (port of ``repro.configs.base``): architectures x input
+shapes -> dry-run cells.
+
+Every architecture contributes one ``ArchSpec``; its family decides which
+shape set applies (LM / GNN / RecSys / FIM).  A *cell* is one (arch,
+shape) pair: the unit the dry-run, the roofline table and the hillclimb
+work on (``launch.cells``).  Dims are padded as the JAX package pads
+them, the unpadded source numbers kept alongside."""
 
 from __future__ import annotations
 
@@ -31,12 +35,13 @@ class ArchSpec:
 
     def skip_reason(self, shape_id: str) -> Optional[str]:
         """Brief rule: long_500k needs sub-quadratic attention; pure
-        full-attention archs skip it."""
+        full-attention archs skip it (the JAX package's reason, word for
+        word)."""
         if self.family == "lm" and shape_id == "long_500k":
             cfg = self.config_fn(shape_id)
             if getattr(cfg, "sliding_window", 0) == 0:
                 return ("full-attention arch: 500k-token decode requires "
-                        "sub-quadratic attention")
+                        "sub-quadratic attention (DESIGN.md §4)")
         return None
 
 
@@ -80,4 +85,26 @@ RECSYS_SHAPES: Dict[str, ShapeDef] = {
     "serve_bulk": ShapeDef("serve_bulk", "serve", dict(batch=262144)),
     "retrieval_cand": ShapeDef("retrieval_cand", "retrieval",
                                dict(batch=1, n_candidates=1_000_000)),
+}
+
+# The paper's own workload as first-class dry-run cells: one distributed
+# mining round (screen + count) over a production-scale bitmap store.
+FIM_SHAPES: Dict[str, ShapeDef] = {
+    # 2^27 transactions (134M), 8192 frequent-itemset rows, 64k pairs/round
+    "mine_128m": ShapeDef("mine_128m", "mine",
+                          dict(store_rows=8192, n_blocks=32768,
+                               block_words=128, pairs=65536,
+                               n_trans=2 ** 27)),
+    # 2^30 transactions (1.07B): 1TB bitmap store, 4.3GB/chip on one pod
+    "mine_1g": ShapeDef("mine_1g", "mine",
+                        dict(store_rows=8192, n_blocks=262144,
+                             block_words=128, pairs=65536,
+                             n_trans=2 ** 30)),
+}
+
+FAMILY_SHAPES: Dict[str, Dict[str, ShapeDef]] = {
+    "lm": LM_SHAPES,
+    "gnn": GNN_SHAPES,
+    "recsys": RECSYS_SHAPES,
+    "fim": FIM_SHAPES,
 }

@@ -17,6 +17,13 @@ outside an :func:`active_mesh` and for plain tensors; a ``DTensor`` is
 redistributed to the resolved placements.  ``mesh=None`` resolves
 against the active mesh (PyTorch has no abstract mesh), else against no
 axes at all.
+
+:func:`local_region` is the port's ``shard_map`` for a piece of model
+code that DTensor's per-op rules cannot carry (attention's online
+softmax, the in-place cache writes): called with DTensors under an
+active mesh it runs the function on each rank's shards
+(``local_map``), redistributing its inputs to the placements the logical
+names give; with plain tensors it is the plain call.
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard, distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.tree import is_axes
 
@@ -172,6 +180,130 @@ def constrain(x: torch.Tensor, logical: Sequence[Optional[str]],
         return x
     return x.redistribute(mesh, placements(logical_spec(logical, mesh),
                                            mesh))
+
+
+def axis_size(logical_name: str, mesh: Optional[DeviceMesh] = None) -> int:
+    """The number of shards the rules give ``logical_name`` on ``mesh``
+    (the active mesh by default); 1 without a mesh."""
+    mesh = mesh if mesh is not None else _current_mesh()
+    if mesh is None:
+        return 1
+    entry = logical_spec((logical_name,), mesh)[0]
+    if entry is None:
+        return 1
+    axes = (entry,) if isinstance(entry, str) else entry
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape, strict=True))
+    return int(np.prod([sizes[a] for a in axes]))
+
+
+def axis_coord(logical_name: str, mesh: Optional[DeviceMesh] = None) -> int:
+    """This rank's index among the ``axis_size(logical_name)`` shards
+    (row-major over the mesh axes the name resolves to); 0 without a
+    mesh."""
+    mesh = mesh if mesh is not None else _current_mesh()
+    if mesh is None:
+        return 0
+    entry = logical_spec((logical_name,), mesh)[0]
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else entry)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape, strict=True))
+    coord = 0
+    for a in axes:
+        coord = coord * sizes[a] + mesh.get_local_rank(a)
+    return coord
+
+
+def current_mesh() -> Optional[DeviceMesh]:
+    """The mesh :func:`active_mesh` installed (``None``: one card)."""
+    return _current_mesh()
+
+
+def local_shape(shape: Sequence[int], pls: Sequence[Placement],
+                mesh: DeviceMesh) -> Tuple[int, ...]:
+    """The shape of the first rank's shard (the largest, as
+    ``torch.chunk`` cuts) of a tensor of ``shape`` placed by ``pls``."""
+    out = list(shape)
+    for md, p in enumerate(pls):
+        if isinstance(p, Shard):
+            out[p.dim] = -(-out[p.dim] // mesh.size(md))
+    return tuple(out)
+
+
+def dtensor_of(local: torch.Tensor, shape: Sequence[int],
+               pls: Sequence[Placement], mesh: DeviceMesh) -> DTensor:
+    """A ``DTensor`` of global ``shape`` whose shard on this rank is
+    ``local`` (no communication: every rank makes its own)."""
+    stride, n = [], 1
+    for d in reversed(tuple(shape)):
+        stride.insert(0, n)
+        n *= int(d)
+    return DTensor.from_local(local, mesh, tuple(pls), run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def make_like(make, logical_tree, ref):
+    """``make(device)``'s dict of tensors, on ``ref``'s device; when
+    ``ref`` is a ``DTensor`` under an active mesh (a traced step's own
+    buffers) each tensor is instead a ``DTensor`` placed by
+    ``logical_tree``, every rank making only its shard (uninitialised):
+    ``make`` then runs on the meta device, so the whole never
+    exists."""
+    mesh = _current_mesh()
+    if mesh is None or not isinstance(ref, DTensor):
+        return make(ref.device)
+    dev = ref._local_tensor.device
+
+    def one(x, names):
+        pls = placements(logical_spec(names, mesh), mesh)
+        local = torch.empty(local_shape(x.shape, pls, mesh), dtype=x.dtype,
+                            device=dev)
+        return dtensor_of(local, x.shape, pls, mesh)
+    return {k: one(v, logical_tree[k])
+            for k, v in make(torch.device("meta")).items()}
+
+
+def local_region(fn, in_logical, out_logical, partial=None):
+    """``fn`` run on each rank's shards when any argument is a
+    ``DTensor`` and a mesh is active: the inputs are redistributed to
+    ``in_logical`` (one logical tuple per positional argument, ``None``
+    for a non-tensor) and the outputs wrapped as ``out_logical`` (a
+    logical tuple, or a tuple of them for several outputs).  On the mesh
+    axes of the logical names ``partial`` gives (a name or a tuple of
+    names; with several outputs, one entry per output) the outputs are
+    partial sums, each rank's ``fn`` summing its shard of those axes.
+    Otherwise ``fn`` itself."""
+    def run(*args):
+        mesh = _current_mesh()
+        if mesh is None or not any(isinstance(a, DTensor) for a in args):
+            return fn(*args)
+        several = bool(out_logical) and not is_axes(out_logical)
+        outs = out_logical if several else (out_logical,)
+        parts = partial if several and partial is not None else (
+            (partial,) * len(outs))
+        names = tuple(mesh.mesh_dim_names)
+
+        def summed(entry) -> set:
+            got = set()
+            for name in (() if entry is None else (entry,)
+                         if isinstance(entry, str) else entry):
+                axes = logical_spec((name,), mesh)[0]
+                if axes is not None:
+                    got |= {axes} if isinstance(axes, str) else set(axes)
+            return got
+
+        def pl(logical, over=frozenset()):
+            if logical is None:
+                return None
+            return tuple(Partial() if names[i] in over else p for i, p in
+                         enumerate(placements(logical_spec(logical, mesh),
+                                              mesh)))
+        return local_map(
+            fn, out_placements=tuple(pl(o, summed(e))
+                                     for o, e in zip(outs, parts,
+                                                     strict=True)),
+            in_placements=tuple(pl(i) for i in in_logical),
+            device_mesh=mesh, redistribute_inputs=True)(*args)
+    return run
 
 
 _ACTIVE_MESH: threading.local = threading.local()

@@ -19,6 +19,13 @@ would not.  The plain version for CPU tensors is
 ``kernels.ref.flash_attention_ref``, chosen by ``kernels.ops``.  Each
 launch adds one to ``flash_attention.launches``; launches are on
 ``torch.cuda.current_stream()`` and never synchronise.
+
+The kernel is reached through the custom op ``repro::flash_attention``
+(:func:`flash_attention_op`): the kernel on CUDA tensors, the plain
+version on CPU tensors (its checks), a shape function for fake tensors
+(the dry-run traces the card's path without a card) and a FLOP formula
+for ``FlopCounterMode``: ``2 * B * H * pairs * (D + Dv)`` over the
+visible (query, key) pairs, the count the kernel's bound uses.
 """
 
 from __future__ import annotations
@@ -26,9 +33,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
-from .ref import check_window
+from .ref import check_window, flash_attention_ref
 
 Tensor = torch.Tensor
 
@@ -83,3 +91,44 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("repro::flash_attention", mutates_args=())
+def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                       window: int, softmax_scale: Optional[float]
+                       ) -> Tensor:
+    """:func:`flash_attention` (the kernel) on CUDA tensors; the plain
+    version on CPU tensors."""
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softmax_scale=softmax_scale)
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softmax_scale=softmax_scale)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window, softmax_scale):
+    B, Sq, H, _ = q.shape
+    return q.new_empty((B, Sq, H, v.shape[-1]))
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps, per batch and head: query ``i``
+    sees keys ``j <= i`` (top-left aligned) when causal, and ``j > i -
+    window`` with a window."""
+    if not causal:
+        return sq * skv
+    total = 0
+    for i in range(sq):
+        hi = min(i, skv - 1)
+        lo = max(0, i - window + 1) if window else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+@register_flop_formula(torch.ops.repro.flash_attention)
+def flash_attention_flops(q_shape, k_shape, v_shape, causal, window,
+                          *args, **kwargs) -> int:
+    B, Sq, H, D = q_shape
+    Skv, Dv = k_shape[1], v_shape[-1]
+    return 2 * B * H * visible_pairs(Sq, Skv, causal, window) * (D + Dv)

@@ -30,11 +30,14 @@ memory without blocking on CUDA.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import bitmap_diff as _bd
 from . import bitmap_intersect as _bi
@@ -52,12 +55,31 @@ _INT32_MIN = -(2 ** 31)
 _INT32_MAX = 2 ** 31 - 1
 
 
+_CARD_PATH = threading.local()
+
+
+@contextlib.contextmanager
+def card_path():
+    """Inside, FAKE tensors take the kernels' route whatever their device:
+    the custom ops' shape functions and FLOP formulas stand in for the
+    kernels.  The dry-run traces the card's path this way on a fake
+    world, whose DTensor shards live on the mesh's device type, the CPU
+    (``launch.cells.trace_cell``).  Real tensors are unaffected."""
+    prev = getattr(_CARD_PATH, "on", False)
+    _CARD_PATH.on = True
+    try:
+        yield
+    finally:
+        _CARD_PATH.on = prev
+
+
 def _use_kernel(t: Tensor, backend: str) -> bool:
     """True -> launch the CUDA kernel; False -> plain version."""
     if backend not in ("auto", "plain"):
         raise ValueError(f"unknown backend {backend!r}")
     if t.device.type == "cpu":
-        return False
+        return (backend == "auto" and getattr(_CARD_PATH, "on", False)
+                and isinstance(t, FakeTensor))
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return backend == "auto"
@@ -574,10 +596,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """Fused causal GQA attention (``ref.flash_attention_ref`` semantics):
     q ``(B, Sq, H, D)``, k ``(B, Skv, KH, D)``, v ``(B, Skv, KH, Dv)`` ->
     ``(B, Sq, H, Dv)`` in q's type; ``window`` > 0 adds the sliding-window
-    mask (query ``i`` sees keys ``i - window < j <= i``)."""
+    mask (query ``i`` sees keys ``i - window < j <= i``).  On CUDA the
+    call is the custom op ``repro::flash_attention`` (the kernel; fake
+    tensors take its shape function)."""
     if _use_kernel(q, backend):
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   softmax_scale=softmax_scale)
+        return _fa.flash_attention_op(q, k, v, causal, window,
+                                      softmax_scale)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     softmax_scale=softmax_scale)
 
@@ -588,9 +612,11 @@ def embedding_bag(table: Tensor, ids: Tensor, mask: Tensor, *,
     sum or mean of table rows per bag, ``(B, L)`` -> ``(B, D)``.  On CUDA
     with a table that requires grad (training) the kernel runs under
     ``segment_embed.EmbeddingBagFn``; otherwise the call is the kernel
-    alone (serving).  The plain version is differentiable as it stands."""
+    alone (serving); both go through the custom op ``repro::embedding_bag``
+    (the kernel; fake tensors take its shape function).  The plain
+    version is differentiable as it stands."""
     if _use_kernel(table, backend):
         if torch.is_grad_enabled() and table.requires_grad:
             return _se.EmbeddingBagFn.apply(table, ids, mask, combiner)
-        return _se.embedding_bag(table, ids, mask, combiner=combiner)
+        return _se.embedding_bag_op(table, ids, mask, combiner)
     return _ref.embedding_bag_ref(table, ids, mask, combiner=combiner)

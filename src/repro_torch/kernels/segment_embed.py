@@ -14,8 +14,14 @@ for CPU tensors is ``kernels.ref.embedding_bag_ref``, chosen by
 ``kernels.ops``.  Each launch adds one to ``embedding_bag.launches``;
 launches are on ``torch.cuda.current_stream()`` and never synchronise.
 
+The kernel is reached through the custom op ``repro::embedding_bag``
+(:func:`embedding_bag_op`): the kernel on CUDA tensors, the plain
+version on CPU tensors (its checks), a shape function for fake tensors
+(the dry-run traces the card's path without a card) and a FLOP formula
+for ``FlopCounterMode`` (one add per slot and width, ``B * L * D``).
+
 Under autograd (a table that requires grad, training) ``kernels.ops``
-wraps the kernel in :class:`EmbeddingBagFn`: the forward launches it,
+wraps the op in :class:`EmbeddingBagFn`: the forward launches it,
 and the backward is :func:`embedding_bag_grad`, plain PyTorch.  That
 backward is not a port of any TPU kernel: no Pallas kernel of the JAX
 package has a backward pass, and JAX differentiates its jnp
@@ -25,8 +31,10 @@ package has a backward pass, and JAX differentiates its jnp
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
+from .ref import embedding_bag_ref
 
 Tensor = torch.Tensor
 
@@ -89,6 +97,28 @@ def embedding_bag_grad(g: Tensor, ids: Tensor, mask: Tensor, n_rows: int,
     return out.index_add_(0, safe, contrib)
 
 
+@torch.library.custom_op("repro::embedding_bag", mutates_args=())
+def embedding_bag_op(table: Tensor, ids: Tensor, mask: Tensor,
+                     combiner: str) -> Tensor:
+    """:func:`embedding_bag` (the kernel) on CUDA tensors; the plain
+    version on CPU tensors."""
+    if table.device.type == "cuda":
+        return embedding_bag(table, ids, mask, combiner=combiner)
+    return embedding_bag_ref(table, ids, mask, combiner=combiner)
+
+
+@embedding_bag_op.register_fake
+def _embedding_bag_fake(table, ids, mask, combiner):
+    return table.new_empty((ids.shape[0], table.shape[1]),
+                           dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro.embedding_bag)
+def embedding_bag_flops(table_shape, ids_shape, *args, **kwargs) -> int:
+    """One add per slot and column: ``B * L * D``."""
+    return int(ids_shape[0]) * int(ids_shape[1]) * int(table_shape[1])
+
+
 class EmbeddingBagFn(torch.autograd.Function):
     """:func:`embedding_bag` (the kernel) under autograd; the backward is
     :func:`embedding_bag_grad` (the VJP of the masked gather, no kernel)."""
@@ -98,7 +128,7 @@ class EmbeddingBagFn(torch.autograd.Function):
                 combiner: str) -> Tensor:
         ctx.save_for_backward(ids, mask)
         ctx.n_rows, ctx.combiner = table.shape[0], combiner
-        return embedding_bag(table, ids, mask, combiner=combiner)
+        return embedding_bag_op(table, ids, mask, combiner)
 
     @staticmethod
     def backward(ctx, g: Tensor):

@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, local_region
 from repro_torch.models.layers import _normal
 from repro_torch.models.recsys import ParamTree
 
@@ -142,17 +142,31 @@ class _GatherSum(torch.autograd.Function):
             None
 
 
+# On a mesh (the dry-run's traced cells) the edge lists are sharded and
+# each rank sums its own edges' messages into every node: partial sums
+# over the edge axes, reduced where the sum is next read.
+_EDGES = ("edges",)
+
+
 def _segment_mean(h: Tensor, edge_src: Tensor, edge_dst: Tensor,
                   inv_deg: Tensor, n: int) -> Tensor:
     """mean over in-edges: ``sum_{e: dst=v} h[src_e] * inv_deg[v]``."""
-    return _GatherSum.apply(h, edge_src, edge_dst, n) * inv_deg[:, None]
+    agg = local_region(lambda h_, s_, d_: _GatherSum.apply(h_, s_, d_, n),
+                       ((None, None), _EDGES, _EDGES), (None, None),
+                       partial="edges")(h, edge_src, edge_dst)
+    return agg * inv_deg[:, None]
+
+
+def _degree(edge_dst: Tensor, n: int) -> Tensor:
+    deg = torch.zeros(n, dtype=torch.float32, device=edge_dst.device)
+    return deg.index_add_(0, edge_dst, torch.ones(
+        edge_dst.shape, dtype=deg.dtype, device=deg.device))
 
 
 def _inv_degree(edge_dst: Tensor, n: int, dtype: torch.dtype) -> Tensor:
     """``1 / max(in-degree, 1)``: the degree summed in fp32, then cast."""
-    deg = torch.zeros(n, dtype=torch.float32, device=edge_dst.device)
-    deg.index_add_(0, edge_dst, torch.ones(edge_dst.shape, dtype=deg.dtype,
-                                           device=deg.device))
+    deg = local_region(lambda d: _degree(d, n), (_EDGES,), (None,),
+                       partial="edges")(edge_dst)
     return (1.0 / deg.clamp_min(1.0)).to(dtype)
 
 

@@ -29,18 +29,27 @@ nor the MoE dispatch syncs with the host (no boolean-mask indexing, no
 device-purity guard.  Projections are ``torch.matmul`` over the weights
 viewed 2-D, so they run as ``aten.mm`` (the dots that ``remat="dots"``
 keeps); the MoE's expert products are batched GEMMs (``torch.bmm``),
-which the JAX package leaves to XLA.  Its sharding hints (``constrain``)
-have no job on one card.
+which the JAX package leaves to XLA.  Its sharding hints have no job
+on one card: on DTensors (the dry-run's traced cells) attention, the
+decode attention and the cache writes run per rank
+(``distributed.sharding.local_region``), batch over the data axes and
+heads over the model axis where both head counts divide it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import (axis_coord, axis_size,
+                                              constrain, current_mesh,
+                                              local_region)
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -242,8 +251,14 @@ def gqa_init(d_model: int, n_heads: int, n_kv_heads: int, d_head: int, *,
 
 
 def _proj(x: Tensor, w: Tensor) -> Tensor:
-    """``einsum("bsd,dhk->bshk", x, w)`` as one 2-D matmul."""
+    """``einsum("bsd,dhk->bshk", x, w)`` as one 2-D matmul.  On a mesh
+    whose model axis would cut a head (8 kv heads over 16), per rank with
+    the heads whole: DTensor cannot unflatten an uneven split, where
+    GSPMD pads."""
     d, h, k = w.shape
+    if isinstance(w, DTensor) and h % axis_size("heads"):
+        return local_region(_proj, (("batch", None, None), (None,) * 3),
+                            ("batch", None, None, None))(x, w)
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
@@ -336,13 +351,25 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, attention: str, *,
     (:func:`chunked_attention`, differentiable) or "flash"
     (``ops.flash_attention``: the kernel on CUDA)."""
     if attention == "chunked":
-        return chunked_attention(q, k, v, causal=True, window=window,
-                                 chunk=chunk, softmax_scale=softmax_scale)
-    if attention == "flash":
-        return ops.flash_attention(q, k, v, causal=True, window=window,
-                                   softmax_scale=softmax_scale,
-                                   backend=backend)
-    raise ValueError(f"unknown attention {attention!r}")
+        fn = functools.partial(chunked_attention, causal=True, window=window,
+                               chunk=chunk, softmax_scale=softmax_scale)
+    elif attention == "flash":
+        fn = functools.partial(ops.flash_attention, causal=True,
+                               window=window, softmax_scale=softmax_scale,
+                               backend=backend)
+    else:
+        raise ValueError(f"unknown attention {attention!r}")
+    axes = head_axes(q.shape[2], k.shape[2])
+    return local_region(fn, (axes, axes, axes), axes)(q, k, v)
+
+
+def head_axes(n_heads: int, n_kv_heads: int) -> Tuple:
+    """Logical axes of a ``(B, S, heads, D)`` attention operand inside a
+    :func:`local_region`: batch over the data axes, heads over the model
+    axis when both head counts divide it (else replicated)."""
+    n = axis_size("heads")
+    heads = "heads" if n_heads % n == 0 and n_kv_heads % n == 0 else None
+    return ("batch", None, heads, None)
 
 
 def gqa_apply(p: GQA, x: Tensor, *, positions: Tensor,
@@ -394,10 +421,15 @@ def gqa_decode(p: GQA, x: Tensor, cache: Dict[str, Tensor], *,
 
     S = cache["k"].shape[1]
     slot = torch.remainder(pos, S) if window else torch.clamp(pos, max=S - 1)
-    k_cache = _batched_set(cache["k"], k_new[:, 0], slot)
-    v_cache = _batched_set(cache["v"], v_new[:, 0], slot)
+    axes = head_axes(q.shape[2], k_new.shape[2])
+    row = (axes[0],) + axes[2:]
+    put = local_region(_batched_set, (axes, row, ("batch",)), axes)
+    k_cache = put(cache["k"], k_new[:, 0], slot)
+    v_cache = put(cache["v"], v_new[:, 0], slot)
     valid = torch.clamp(pos + 1, max=S)
-    o = _direct_decode_attention(q, k_cache, v_cache, valid)
+    o = local_region(_direct_decode_attention,
+                     (axes, axes, axes, ("batch",)), axes)(
+        q, k_cache, v_cache, valid)
     y = _out(p, o, cd)
     return y, {"k": k_cache, "v": v_cache, "len": pos + 1}
 
@@ -563,8 +595,11 @@ def mla_decode(p: MLA, x: Tensor, cache: Dict[str, Tensor], dims: MLADims,
 
     S = cache["c_kv"].shape[1]
     slot = torch.clamp(pos, max=S - 1)
-    c_kv = _batched_set(cache["c_kv"], c_new[:, 0], slot)
-    k_rope = _batched_set(cache["k_rope"], kr_new[:, 0], slot)
+    put = local_region(_batched_set, (("batch", None, None),
+                                      ("batch", None), ("batch",)),
+                       ("batch", None, None))
+    c_kv = put(cache["c_kv"], c_new[:, 0], slot)
+    k_rope = put(cache["k_rope"], kr_new[:, 0], slot)
     valid = torch.clamp(pos + 1, max=S)
 
     f32 = torch.float32
@@ -606,12 +641,17 @@ def swiglu_init(d: int, f: int, *, generator: torch.Generator,
 
 
 def swiglu(p: SwiGLU, x: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
-    cd = compute_dtype
+    return _swiglu(x, p.w_gate, p.w_up, p.w_down, compute_dtype)
+
+
+def _swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
+            cd: torch.dtype) -> Tensor:
     xc = x.to(cd)
-    g = xc @ p.w_gate.to(cd)
-    u = xc @ p.w_up.to(cd)
+    g = xc @ w_gate.to(cd)
+    u = xc @ w_up.to(cd)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(cd) * u
-    return h @ p.w_down.to(cd)
+    h = constrain(h, ("batch",) + (None,) * (h.dim() - 2) + ("act_ff",))
+    return h @ w_down.to(cd)
 
 
 
@@ -683,7 +723,12 @@ def moe_route(p: MoE, x: Tensor, top_k: int
     K))``, the top ``K`` experts of each token by probability, in
     falling order as ``jax.lax.top_k`` gives them, their gates
     renormalised to sum 1."""
-    logits = x.to(torch.float32) @ p.router.to(torch.float32)
+    return _route(p.router, x, top_k)
+
+
+def _route(router: Tensor, x: Tensor, top_k: int
+           ) -> Tuple[Tensor, Tensor, Tensor]:
+    logits = x.to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gates, ids = torch.topk(probs, top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -705,24 +750,44 @@ def moe_apply(p: MoE, x: Tensor, dims: MoEDims, *,
     are three ``torch.bmm`` over the experts; the combine gathers each
     copy's row, weighs it by its gate (0 if dropped) and adds it to its
     token with ``index_add_``.  Shared experts add a SwiGLU of every token.
-    Nothing here waits for the device."""
+    Nothing here waits for the device.  On a mesh (the dry-run's traced
+    cells) it runs expert-parallel: :func:`_moe_sharded`."""
     cd = compute_dtype
     B, S, D = x.shape
     E, K = dims.n_experts, dims.top_k
     T = B * S
     G = _pick_groups(dims.dispatch_groups, T)
+    if isinstance(x, DTensor) and current_mesh() is not None:
+        return _moe_sharded(p, x, dims, cd, G)
+    y, probs, ids = _moe_experts(x, p.router, p.w_gate, p.w_up, p.w_down,
+                                 dims, cd, G, 0)
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e over all tokens
+    me = probs.mean(dim=(0, 1))
+    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+        0, ids.reshape(-1), torch.ones((T * K,), dtype=torch.float32,
+                                       device=x.device)) / (T * K)
+    aux = E * torch.sum(me * ce)
+    if p.shared is not None:
+        y = y + swiglu(p.shared, x.reshape(G, T // G, D), cd)
+    return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def _moe_experts(x: Tensor, router: Tensor, w_gate: Tensor, w_up: Tensor,
+                 w_down: Tensor, dims: MoEDims, cd: torch.dtype, G: int,
+                 e0: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """The routed experts of :func:`moe_apply` over ``G`` groups of ``x``
+    (B, S, D), for the experts ``[e0, e0 + len(w_gate))`` (all of them
+    unless the weights are a shard): ``(y (G, Tg, D) in cd, probs (G, Tg,
+    E), ids (G, Tg, K))``.  Copies routed to other experts add nothing,
+    so over expert shards ``y`` is a partial sum."""
+    B, S, D = x.shape
+    E, K = dims.n_experts, dims.top_k
+    E_loc = w_gate.shape[0]
+    T = B * S
     Tg = T // G
     dev = x.device
     xg = x.reshape(G, Tg, D)
-
-    probs, gates, ids = moe_route(p, xg, K)
-
-    # load-balancing aux loss (Switch): E * sum_e f_e * p_e over all tokens
-    me = probs.mean(dim=(0, 1))
-    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
-        0, ids.reshape(-1), torch.ones((T * K,), dtype=torch.float32,
-                                       device=dev)) / (T * K)
-    aux = E * torch.sum(me * ce)
+    probs, gates, ids = _route(router, xg, K)
 
     C = moe_capacity(dims, Tg)
     n = Tg * K
@@ -735,29 +800,71 @@ def moe_apply(p: MoE, x: Tensor, dims: MoEDims, *,
         .contiguous(), side="left")
     pos = torch.arange(n, device=dev) - torch.gather(starts, 1, se)
     keep = pos < C
+    if E_loc != E:                       # an expert shard: its copies only
+        keep = keep & (se >= e0) & (se < e0 + E_loc)
+        se = se - e0
     grp = torch.arange(G, device=dev)[:, None]
-    trash = E * G * C
+    trash = E_loc * G * C
     slot = torch.where(keep, se * (G * C) + grp * C + pos, trash)  # (G, n)
     tok = (grp * Tg + st).reshape(-1)                            # (G n,)
     xs = xg.reshape(T, D).index_select(0, tok).to(cd)
     buf = torch.zeros((trash + 1, D), dtype=cd, device=dev)
     buf.index_copy_(0, slot.reshape(-1), xs)
     del xs
-    hb = buf[:trash].view(E, G * C, D)
+    hb = buf[:trash].view(E_loc, G * C, D)
 
-    g = torch.bmm(hb, p.w_gate.to(cd))
-    u = torch.bmm(hb, p.w_up.to(cd))
+    g = torch.bmm(hb, w_gate.to(cd))
+    u = torch.bmm(hb, w_up.to(cd))
     del buf, hb
     h = torch.nn.functional.silu(g.to(torch.float32)).to(cd) * u
     del g, u
-    yb = torch.bmm(h, p.w_down.to(cd)).view(trash, D)            # (E G C, D)
+    yb = torch.bmm(h, w_down.to(cd)).view(trash, D)              # (E G C, D)
     del h
 
     y_cp = yb.index_select(0, torch.clamp(slot, max=trash - 1).reshape(-1))
     y_cp = (y_cp * keep.reshape(-1, 1).to(cd)
             * sg.reshape(-1, 1).to(cd))
     y = torch.zeros((T, D), dtype=cd, device=dev).index_add_(0, tok, y_cp)
-    y = y.view(G, Tg, D)
-    if p.shared is not None:
-        y = y + swiglu(p.shared, xg, cd)
-    return y.reshape(B, S, D).to(x.dtype), aux
+    return y.view(G, Tg, D), probs, ids
+
+
+def _moe_sharded(p: MoE, x: Tensor, dims: MoEDims, cd: torch.dtype,
+                 G: int) -> Tuple[Tensor, Tensor]:
+    """:func:`moe_apply` on a mesh, per rank (``local_region``): the token
+    groups split like the batch, each rank runs its own experts (the
+    ``experts`` axis) over its groups, and the routed and shared outputs
+    are partial sums over the expert and hidden axes; the aux loss is
+    made from the routing statistics summed over the batch axes, so it is
+    the whole batch's."""
+    B, S, D = x.shape
+    E, K = dims.n_experts, dims.top_k
+    n_e = axis_size("experts")
+    e0 = axis_coord("experts") * (E // n_e)
+    g_loc = G // axis_size("batch")
+    shared = () if p.shared is None else (
+        p.shared.w_gate, p.shared.w_up, p.shared.w_down)
+
+    def local(x_, router, w_gate, w_up, w_down, *sh):
+        y, probs, ids = _moe_experts(x_, router, w_gate, w_up, w_down, dims,
+                                     cd, g_loc, e0)
+        if sh:
+            y = y + _swiglu(x_.reshape(y.shape), *sh, cd)
+        me_sum = probs.sum(dim=(0, 1))
+        counts = torch.zeros((E,), dtype=torch.float32,
+                             device=x_.device).index_add_(
+            0, ids.reshape(-1), torch.ones((ids.numel(),),
+                                           dtype=torch.float32,
+                                           device=x_.device))
+        return y.reshape(x_.shape).to(x_.dtype), me_sum, counts
+
+    expert_in = ("experts", None, "expert_ff")
+    weights = (expert_in, expert_in, ("experts", "expert_ff", None))
+    shared_in = ((None, "ff"), (None, "ff"), ("ff", None))[:len(shared)]
+    y, me_sum, counts = local_region(
+        local, (("batch", None, None), (None, None)) + weights + shared_in,
+        (("batch", None, None), (None,), (None,)),
+        partial=(("experts", "expert_ff", "ff"), "batch", "batch"))(
+            x, p.router, p.w_gate, p.w_up, p.w_down, *shared)
+    T = B * S
+    aux = E * torch.sum((me_sum / T) * (counts / (T * K)))
+    return y, aux

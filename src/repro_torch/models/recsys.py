@@ -19,6 +19,7 @@ sampled softmax with the logQ correction.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -26,6 +27,8 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.distributed.sharding import (axis_size, constrain,
+                                              local_region)
 from repro_torch.models.layers import DTYPES, _normal, _param, embed_lookup
 
 Tensor = torch.Tensor
@@ -58,8 +61,11 @@ class ParamTree(nn.Module):
 
 
 def embedding_lookup(p: ParamTree, ids: Tensor) -> Tensor:
-    """Plain row gather; ids (...,) -> (..., D)."""
-    return embed_lookup(p.table, ids)
+    """Plain row gather; ids (...,) -> (..., D).  On a mesh the rows of a
+    row-sharded table arrive as partial sums, reduced here (the JAX
+    package constrains the lookups' outputs the same way)."""
+    e = embed_lookup(p.table, ids)
+    return constrain(e, ("batch",) + (None,) * (e.dim() - 1))
 
 
 def embedding_bag(p: ParamTree, ids: Tensor, mask: Optional[Tensor],
@@ -81,8 +87,14 @@ def embedding_bag(p: ParamTree, ids: Tensor, mask: Optional[Tensor],
         raise ValueError(combiner)
     if mask is None:
         mask = torch.ones(ids.shape, dtype=torch.int32, device=ids.device)
-    return ops.embedding_bag(p.table, ids, mask, combiner=combiner,
-                             backend=backend)
+    # bag-sharded on a mesh (each rank sums its bags over the whole
+    # table), where the bags divide the batch axes
+    bags = (("batch", None) if ids.shape[0] % axis_size("batch") == 0
+            else (None, None))
+    return local_region(functools.partial(ops.embedding_bag,
+                                          combiner=combiner,
+                                          backend=backend),
+                        ((None, None), bags, bags), bags)(p.table, ids, mask)
 
 
 def _mlp_tree(dims: Sequence[int], dtype, generator: torch.Generator):

@@ -35,6 +35,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (constrain, local_region,
+                                              make_like)
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
@@ -259,12 +261,16 @@ def _mlp(cfg: LMConfig, lp: DecoderLayer, x: Tensor
          ) -> Tuple[Tensor, Optional[Tensor]]:
     """``x + mlp(norm(x))`` and the layer's MoE aux loss (``None`` for a
     dense layer)."""
+    # the attention residual is reduced before the norm (on a mesh the
+    # output projection leaves a partial sum)
+    x = constrain(x, ("batch", None, "act_embed"))
     h = L.rmsnorm(lp.mlp_norm, x, cfg.norm_eps)
     if isinstance(lp.mlp, L.MoE):
         m, aux = L.moe_apply(lp.mlp, h, cfg.moe_dims,
                              compute_dtype=cfg.param_dtype)
-        return x + m, aux
-    return x + L.swiglu(lp.mlp, h, cfg.param_dtype), None
+    else:
+        m, aux = L.swiglu(lp.mlp, h, cfg.param_dtype), None
+    return constrain(x + m, ("batch", None, "act_embed")), aux
 
 
 def _layer_fwd(cfg: LMConfig, lp: DecoderLayer, x: Tensor,
@@ -299,6 +305,7 @@ def forward(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = L.embed_lookup(model.embed.table, tokens)
+    x = constrain(x, ("batch", None, "act_embed"))
     layer = _remat(cfg, functools.partial(_layer_fwd, cfg))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
@@ -308,6 +315,7 @@ def forward(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
     dt = cfg.param_dtype
     logits = x.to(dt) @ model.head_table().to(dt).T
+    logits = constrain(logits, ("batch", None, "vocab_act"))
     return logits, aux_total
 
 
@@ -345,8 +353,10 @@ def loss_fn(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
     lse = torch.log(_ExpSum.apply(logits, m)) + m[..., 0].to(torch.float32)
     valid = labels >= 0
     safe = torch.clamp(labels, min=0).to(torch.int64)
-    label_logit = torch.gather(logits, -1, safe[..., None])[..., 0].to(
-        torch.float32)
+    # the gathered logit is a partial sum on a vocab-sharded mesh:
+    # reduce it while it still has the index's shape
+    label_logit = constrain(torch.gather(logits, -1, safe[..., None]),
+                            ("batch", None, None))[..., 0].to(torch.float32)
     n_valid = torch.clamp(valid.sum(), min=1)
     ce = ((lse - label_logit) * valid).sum() / n_valid
     total = ce + cfg.moe_aux_weight * aux
@@ -385,8 +395,10 @@ def prefill(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
     w = cfg.sliding_window
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = L.embed_lookup(model.embed.table, tokens)
+    x = constrain(x, ("batch", None, "act_embed"))
     cap = w if w else max(max_len or S, S)
-    cache = init_cache(cfg, B, cap, device=tokens.device)
+    cache = make_like(lambda dev: init_cache(cfg, B, cap, device=dev),
+                      cache_logical(cfg), tokens)
     keys = _cache_keys(cfg)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp.attn_norm, x, cfg.norm_eps)
@@ -395,11 +407,20 @@ def prefill(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
         for name, t in zip(keys, kv):
             if w and S > w:
                 t = torch.roll(t[:, S - w:], (S - w) % w, dims=1)
-            cache[name][i, :, :t.shape[1]] = t
+            axes = (L.head_axes(cfg.n_heads, cfg.n_kv_heads) if t.dim() == 4
+                    else ("batch", None, None))
+            local_region(_write_prefix, (axes, axes), axes)(cache[name][i], t)
         del kv
         x, _ = _mlp(cfg, lp, x + a)
     cache["len"].fill_(S)
     return _logits(model, cfg, x[:, -1]), cache
+
+
+def _write_prefix(buf: Tensor, t: Tensor) -> Tensor:
+    """``buf[:, :S] = t`` in place for ``t (B, S, ...)``; returns
+    ``buf``."""
+    buf[:, :t.shape[1]] = t
+    return buf
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
@@ -445,6 +466,7 @@ def decode_step(model: TransformerLM, cfg: LMConfig, token: Tensor,
     writes slot ``min(len, S - 1)``, or ring slot ``len % S`` with a
     sliding window; MLA writes its latent entries (absorbed decode)."""
     x = L.embed_lookup(model.embed.table, token[:, None])      # (B, 1, D)
+    x = constrain(x, ("batch", None, "act_embed"))
     pos = cache["len"]
     keys = _cache_keys(cfg)
     for i, lp in enumerate(model.layers):

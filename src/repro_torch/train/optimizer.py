@@ -50,6 +50,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.tree import flatten_with_paths, is_axes, tree_from_paths
 
@@ -174,8 +175,27 @@ class _LeafOptimizer(torch.optim.Optimizer):
         return per_group, lr_at(self.cfg, self.step_count), norm
 
 
-def _zeros(shape, like: Tensor) -> Tensor:
-    return torch.zeros(shape, dtype=torch.float32, device=like.device)
+def _zeros(shape, like: Tensor, drop: Optional[int] = None) -> Tensor:
+    """fp32 zeros of ``shape`` on ``like``'s device.  For a ``DTensor``
+    parameter (a traced, sharded cell) the state is a ``DTensor`` placed
+    as the parameter is, its dimensions aligned from the right; ``drop``
+    (-1 or -2) names the trailing dimension of the leaf that a factored
+    moment lacks."""
+    if not isinstance(like, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=like.device)
+    from repro_torch.distributed.sharding import dtensor_of, local_shape
+    pls = []
+    for p in like.placements:
+        e = like.dim() - p.dim if isinstance(p, Shard) else 0
+        if e and drop is not None and e == -drop:
+            e = 0
+        elif e and drop is not None and e > -drop:
+            e -= 1
+        pls.append(Shard(len(shape) - e) if e else Replicate())
+    mesh = like.device_mesh
+    local = torch.zeros(local_shape(shape, pls, mesh), dtype=torch.float32,
+                        device=like._local_tensor.device)
+    return dtensor_of(local, shape, pls, mesh)
 
 
 class AdamW(_LeafOptimizer):
@@ -224,8 +244,9 @@ class Adafactor(_LeafOptimizer):
         shape = self._shape(group)
         p0 = group["params"][0]
         if len(shape) >= 2:
-            return {"v": {"vr": _zeros(shape[:-1], p0),
-                          "vc": _zeros(shape[:-2] + shape[-1:], p0)}}
+            return {"v": {"vr": _zeros(shape[:-1], p0, drop=-1),
+                          "vc": _zeros(shape[:-2] + shape[-1:], p0,
+                                       drop=-2)}}
         return {"v": {"v": _zeros(shape, p0)}}
 
     @torch.no_grad()

@@ -1076,3 +1076,99 @@ def test_int8_compression_on_card(cuda_device):
     for psum, cross in res:
         assert torch.equal(torch.from_numpy(psum["w"]), want)
         assert torch.equal(torch.from_numpy(cross["w"]), want / 2.0)
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the custom ops and the mining round on the card
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Skv, H, KH, D, Dv, causal, window, dtype): shapes of phase 1's
+# flash sweep (chip_smoke.FLASH_CASES and FLASH_WINDOW_CASES)
+FLASH_OP_CASES = [
+    (2, 128, 128, 4, 2, 32, 32, True, 0, "float32"),
+    (2, 128, 256, 4, 1, 32, 16, False, 0, "float32"),
+    (1, 130, 70, 2, 2, 16, 16, True, 0, "float32"),
+    (1, 200, 200, 16, 16, 64, 64, True, 0, "bfloat16"),
+    (1, 128, 128, 4, 4, 128, 128, True, 0, "bfloat16"),
+    (1, 1000, 1000, 48, 8, 128, 128, True, 100, "bfloat16"),
+    (1, 777, 777, 4, 2, 64, 64, True, 300, "float32"),
+    (2, 300, 300, 4, 4, 192, 128, True, 0, "bfloat16"),
+    (1, 333, 333, 4, 4, 190, 72, True, 64, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_OP_CASES)
+def test_flash_custom_op_equals_the_kernel_wrapper(cuda_device, case):
+    """``ops.flash_attention`` goes through ``repro::flash_attention``; its
+    output is the kernel wrapper's called directly, bit for bit, and each
+    call launches the kernel once."""
+    B, Sq, Skv, H, KH, D, Dv, causal, w, dtype = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dt)
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, Dv)))
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=w)
+    want = flash_attention(q, k, v, causal=causal, window=w)
+    assert flash_attention.launches == before + 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("V,D,B,L,comb", [(100, 16, 8, 5, "mean"),
+                                          (64, 32, 16, 9, "sum"),
+                                          (300, 6, 33, 7, "sum"),
+                                          (5000, 256, 40, 100, "mean"),
+                                          (3000, 64, 5000, 30, "mean")])
+def test_embedding_bag_custom_op_equals_the_kernel_wrapper(cuda_device, V, D,
+                                                           B, L, comb):
+    """``ops.embedding_bag`` through ``repro::embedding_bag``, serving and
+    under autograd, against the wrapper called directly: bit-equal, one
+    launch a call."""
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32)
+                             ).to(cuda_device)
+    ids = torch.from_numpy(rng.integers(0, V, (B, L)).astype(np.int32)
+                           ).to(cuda_device)
+    mask = torch.from_numpy(rng.random((B, L)) < 0.8).to(cuda_device)
+    before = embedding_bag.launches
+    with torch.no_grad():
+        got = ops.embedding_bag(table, ids, mask, combiner=comb)
+    want = embedding_bag(table, ids, mask, combiner=comb)
+    t = table.clone().requires_grad_(True)
+    trained = ops.embedding_bag(t, ids, mask, combiner=comb)
+    assert embedding_bag.launches == before + 3
+    assert torch.equal(got, want) and torch.equal(trained.detach(), want)
+
+
+def test_mining_round_on_the_card_equals_the_cpu(cuda_device):
+    """Cell (c)'s round (``make_mining_round`` on one rank) at a cut
+    shape: bound and count on the card bit-equal to the CPU plain path,
+    both rounds."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import (make_mining_round,
+                                              make_mining_round_v2)
+    from repro_torch.launch.forcedevices import free_port
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh((1, 1))
+        g = torch.Generator().manual_seed(5)
+        store = torch.randint(-2 ** 31, 2 ** 31, (64, 32, 128),
+                              dtype=torch.int64, generator=g).to(torch.int32)
+        a = torch.randint(0, 64, (8,), generator=g).repeat_interleave(512)
+        pairs = torch.stack([a, torch.randint(0, 64, (4096,), generator=g)],
+                            1).to(torch.int32)
+        rho = torch.zeros(4096, dtype=torch.int32)
+        suffix1 = suffix_popcounts(store)[:, 1:2].contiguous()
+        for make, args in ((make_mining_round, (store, pairs, rho)),
+                           (make_mining_round_v2,
+                            (store, suffix1, pairs, rho))):
+            fn = make(mesh, pair_chunk=512)
+            cpu = fn(*args)
+            card = fn(*(x.to(cuda_device) for x in args))
+            for c, p in zip(card, cpu, strict=True):
+                assert torch.equal(c.cpu(), p)
+    finally:
+        dist.destroy_process_group()

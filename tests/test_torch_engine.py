@@ -410,7 +410,13 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.distributed.compression',\n"
         "       'repro_torch.distributed.collectives',\n"
         "       'repro_torch.launch.gnn_ranks',\n"
-        "       'repro_torch.configs.graphsage_reddit'}\n"
+        "       'repro_torch.configs.graphsage_reddit',\n"
+        "       'repro_torch.configs.fim_eclat',\n"
+        "       'repro_torch.launch.cells', 'repro_torch.launch.dryrun',\n"
+        "       'repro_torch.launch.hillclimb',\n"
+        "       'repro_torch.roofline.analysis',\n"
+        "       'repro_torch.roofline.comms',\n"
+        "       'repro_torch.roofline.counters'}\n"
         "print(len(mods), bad, sorted(new - set(mods)))\n"
         "sys.exit(1 if bad or len(mods) < 12 or new - set(mods) else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

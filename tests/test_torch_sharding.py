@@ -41,7 +41,7 @@ from repro.models import recsys as JR
 from repro.models import transformer as JT
 from repro.train import optimizer as jopt
 
-from repro_torch.configs import REGISTRY, get_arch
+from repro_torch.configs import ASSIGNED_ARCHS, REGISTRY, get_arch
 from repro_torch.distributed import compression as TC
 from repro_torch.distributed import sharding as TS
 from repro_torch.launch.forcedevices import free_port, run_ranks
@@ -153,7 +153,7 @@ def test_use_rules_is_scoped_and_active_mesh_resolves(world1):
     assert TS.DEFAULT_RULES == JS.DEFAULT_RULES
 
 
-@pytest.mark.parametrize("arch_id", sorted(REGISTRY))
+@pytest.mark.parametrize("arch_id", sorted(ASSIGNED_ARCHS))
 def test_arch_param_specs_and_divisibility_match_jax(world1, arch_id):
     """Every logical leaf of the arch's full-config tree resolves to JAX's
     spec on both meshes, under the arch's rules; and
@@ -244,7 +244,7 @@ def test_cache_logical_equals_jax(arch_id):
 
 
 @pytest.mark.parametrize("kind", ["adamw", "adafactor"])
-@pytest.mark.parametrize("arch_id", sorted(REGISTRY))
+@pytest.mark.parametrize("arch_id", sorted(ASSIGNED_ARCHS))
 def test_opt_state_logical_equals_jax(arch_id, kind):
     _, logical = _init_jax(arch_id, full=False)
     want = jopt.opt_state_logical(logical, jopt.OptConfig(kind=kind))
