@@ -3633,6 +3633,94 @@ def phase_timing_slice2(dev, declat, prepost) -> dict:
     return out
 
 
+def _flash_fp32_timing(time_ms, q, k, v) -> dict:
+    """The fp32 scalar flash kernel (``csrc/flash_attention.cu``) at the
+    same shape, the inputs cast to fp32, beside its plain version and
+    fp32 ``F.scaled_dot_product_attention(is_causal=True)``; the bound
+    counts its multiply-adds at the fp32 non-tensor peak."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    q, k, v = (x.float() for x in (q, k, v))
+    B, S, H, D = q.shape
+    Dv = v.shape[3]
+    ms = time_ms(lambda: ops.flash_attention(q, k, v), 5)
+    plain_ms = time_ms(lambda: ops.flash_attention(q, k, v,
+                                                   backend="plain"), 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_ms = time_ms(sdpa, 5)
+    err = (sdpa().transpose(1, 2) - ops.flash_attention(q, k, v)
+           ).abs().max().item()
+    need(err < 2e-4, f"fp32 flash_attention disagrees with SDPA ({err})")
+    nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * Dv) * 4
+    flops = 2 * B * H * (S * (S + 1) // 2) * (D + Dv)
+    bound, by = _bound(nbytes, flops, PEAK_OPS_PER_S)
+    say(f"timing flash_attention fp32 (B {B} S {S} H {H} D {D}, causal, "
+        f"the scalar kernel): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library (SDPA fp32) {lib_ms:.4f} ms, kernel / library "
+        f"{ms / lib_ms:.3f}, bound {bound:.4f} ms ({by}: {nbytes} B, "
+        f"{flops} flops at the fp32 non-tensor peak); kernel vs SDPA {err}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by, "vs_library_err": err,
+            "kernel_over_library": ms / lib_ms}
+
+
+def _flash_at_cell_b(dev, batch: int, seed: int) -> dict:
+    """The bf16 flash kernel at phase 16 (b)'s shape (qwen1.5-0.5b
+    ``prefill_32k`` at ``batch``: S 32,768, H 16, D 64, causal) on seeded
+    inputs, beside ``F.scaled_dot_product_attention(is_causal=True)``.
+    Its plain version is not timed here: it would take seconds a call
+    at this length."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    B, S, H, D = batch, 32_768, 16, 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, S, H, D, device=dev, generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    time_ms = _timer(dev)
+    ms = time_ms(lambda: ops.flash_attention(q, k, v), 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_ms = time_ms(sdpa, 3)
+    ref = sdpa().transpose(1, 2).float()
+    diff = (ref - ops.flash_attention(q, k, v).float()).abs()
+    err = diff.max().item()
+    # Late rows average ~32k random values, so their outputs are ~1e-2:
+    # each error is held against its row's largest output.  Both sides
+    # round fp32 sums to bf16, so a sound kernel is within one bf16 ulp
+    # (2^-7 of the value at most); a dropped KV tile of 128 keys moves a
+    # late row by ~2% of its largest.
+    rel = (diff / ref.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+           ).max().item()
+    del ref, diff
+    need(rel < 1e-2, f"flash_attention at S 32,768 disagrees with SDPA "
+                     f"(max abs {err}, {rel} of its row's largest)")
+    nbytes = 4 * q.numel() * 2
+    flops = 2 * B * H * (S * (S + 1) // 2) * (2 * D)
+    bound, by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+    say(f"timing flash_attention bf16 at cell (b)'s shape (B {B} S {S} H "
+        f"{H} D {D}, causal): kernel {ms:.4f} ms "
+        f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), library (SDPA) "
+        f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.3f}, bound "
+        f"{bound:.4f} ms ({by}: {nbytes} B, {flops} flops); kernel vs SDPA "
+        f"{err} ({rel} of its row's largest)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"ms": ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": by, "vs_library_err": err, "vs_library_rel": rel,
+            "shape": [B, S, H, D],
+            "kernel_over_library": ms / lib_ms}
+
+
 def phase_timing_slice3(dev, serve, retrieval, seed) -> dict:
     """flash_attention at the serve path's prefill shape (layer 0's own
     q, k, v: B 8, S 2048, H 16, D 64, bf16), beside
@@ -3680,7 +3768,8 @@ def phase_timing_slice3(dev, serve, retrieval, seed) -> dict:
         "kernel_over_library": fa_ms / fa_lib_ms, "tflops": fa_tflops,
         "max_abs_err": serve["report"]["layer0_attn_err"],
         "shape": [B, S, H, KH, D, Dv], "bytes": fa_bytes, "ops": fa_flops,
-        "vs_library_err": lib_err}
+        "vs_library_err": lib_err,
+        "fp32": _flash_fp32_timing(time_ms, q, k, v)}
 
     cfg = retrieval["cfg"]
     table = retrieval["model"].item_emb.table
@@ -3904,7 +3993,8 @@ def phase_cells(dev, counters, seed, smi_line) -> dict:
     fake and real on a 1-rank world and held fake against real; (c)'s
     bound and count against the CPU plain path on its first
     ``FIM_CHECK_CHUNKS`` pair chunks; the flash and EmbeddingBag kernels
-    launched on (b) and (d).  Beside them, in processes of their own, the
+    launched on (b) and (d); the row-sharded bag on the 1-rank mesh
+    equal to the unsharded one.  Beside them, in processes of their own, the
     dry-run of qwen1.5-0.5b's and fim-eclat's cells on the fake 256-rank
     world and ``hillclimb --target fim``, whose roofline rows and v2's
     bytes against the baseline's are printed."""
@@ -3973,6 +4063,9 @@ def phase_cells(dev, counters, seed, smi_line) -> dict:
                 f"args {r['args_bytes']} B; launches "
                 f"{ {k: v for k, v in r['launches'].items() if v} }; "
                 f"{smi_line}")
+        out["row_sharded_bag"] = _row_sharded_bag(dev, counters, mesh, seed)
+        out["flash_cell_b"] = _flash_at_cell_b(
+            dev, out["cells"]["b"]["dims"]["batch"], seed)
     finally:
         dist.destroy_process_group()
     logs = {}
@@ -4009,6 +4102,51 @@ def phase_cells(dev, counters, seed, smi_line) -> dict:
         "embedding_bag": out["cells"]["d"]["launches"]["embedding_bag"]}
     out["bag_wrapper"] = _bag_wrapper_cost(dev, seed)
     return out
+
+
+def _row_sharded_bag(dev, counters, mesh, seed) -> dict:
+    """The EmbeddingBag at ``serve_p99`` as a mesh runs it (the two-tower
+    item table row-sharded over ``model``, the bags over the batch axes,
+    all ``DTensor``\\ s on the 1-rank NCCL mesh): through
+    ``recsys.embedding_bag``'s ``local_region``, the kernel (the rank's
+    masked sum, then the mean) and the partial sums' all-reduce, equal
+    bit for bit to the unsharded bag (the kernel's own mean)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import (active_mesh,
+                                                  make_param_shardings,
+                                                  use_rules)
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import ParamTree, embedding_bag
+
+    cfg = get_arch("two-tower-retrieval").config_fn()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(cfg.n_items, cfg.embed_dim, device=dev, generator=g)
+    ids = torch.randint(0, cfg.n_items, (512, cfg.n_user_hist),
+                        dtype=torch.int32, device=dev, generator=g)
+    mask = torch.rand(512, cfg.n_user_hist, device=dev, generator=g) < 0.8
+    with torch.inference_mode():
+        plain = ops.embedding_bag(table, ids, mask)
+        with use_rules({}), active_mesh(mesh):
+            sh = make_param_shardings(mesh, {
+                "table": ("table_rows", "table_dim"),
+                "ids": ("batch", None), "mask": ("batch", None)})
+            p = ParamTree({"table": distribute_tensor(
+                table, mesh, sh["table"].placements)})
+            ids_d, mask_d = (distribute_tensor(t, mesh, sh[k].placements)
+                             for k, t in (("ids", ids), ("mask", mask)))
+            out, _, launches = _launches(counters, lambda: embedding_bag(
+                p, ids_d, mask_d, "mean").full_tensor())
+    need(launches["embedding_bag"] == 1, f"the row-sharded bag launched "
+         f"{launches['embedding_bag']} bag kernels, not 1")
+    need(torch.equal(out, plain), "the row-sharded bag differs from the "
+         f"unsharded one: max abs err {(out - plain).abs().max().item()}")
+    say(f"phase cells: the row-sharded bag at serve_p99 (512 x "
+        f"{cfg.n_user_hist} over {cfg.n_items} x {cfg.embed_dim}, through "
+        f"local_region on the 1-rank NCCL mesh) equals the unsharded bag "
+        f"bit for bit; 1 bag launch")
+    return {"equal": True, "launches": launches["embedding_bag"]}
 
 
 def _bag_wrapper_cost(dev, seed, reps: int = 3) -> dict:

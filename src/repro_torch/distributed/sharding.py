@@ -196,21 +196,26 @@ def axis_size(logical_name: str, mesh: Optional[DeviceMesh] = None) -> int:
     return int(np.prod([sizes[a] for a in axes]))
 
 
-def axis_coord(logical_name: str, mesh: Optional[DeviceMesh] = None) -> int:
-    """This rank's index among the ``axis_size(logical_name)`` shards
-    (row-major over the mesh axes the name resolves to); 0 without a
-    mesh."""
+def axis_start(logical_name: str, n: int,
+               mesh: Optional[DeviceMesh] = None) -> int:
+    """The first index of this rank's shard of a dimension of ``n``
+    sharded by ``logical_name`` (:func:`shard_start` of its placements);
+    0 without a mesh."""
     mesh = mesh if mesh is not None else _current_mesh()
     if mesh is None:
         return 0
-    entry = logical_spec((logical_name,), mesh)[0]
-    axes = () if entry is None else (
-        (entry,) if isinstance(entry, str) else entry)
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape, strict=True))
-    coord = 0
-    for a in axes:
-        coord = coord * sizes[a] + mesh.get_local_rank(a)
-    return coord
+    return shard_start((n,), placements(logical_spec((logical_name,), mesh),
+                                        mesh), mesh)
+
+
+def local_index(ids: torch.Tensor, first: int,
+                n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ids`` as indices into a shard of ``n`` entries that starts at
+    ``first``: the shifted ids, clamped into the shard, and where the
+    shard holds them."""
+    loc = ids - first
+    held = (loc >= 0) & (loc < n)
+    return loc.clamp(0, max(n - 1, 0)), held
 
 
 def current_mesh() -> Optional[DeviceMesh]:
@@ -262,7 +267,35 @@ def make_like(make, logical_tree, ref):
             for k, v in make(torch.device("meta")).items()}
 
 
-def local_region(fn, in_logical, out_logical, partial=None):
+def shard_start(shape: Sequence[int], pls: Sequence[Placement],
+                mesh: DeviceMesh, dim: int = 0) -> int:
+    """The first index along ``dim`` of this rank's shard of a tensor of
+    ``shape`` placed by ``pls`` (``torch.chunk`` cuts, the outer mesh
+    dimension first, as DTensor shards)."""
+    lo, n = 0, int(shape[dim])
+    for md, p in enumerate(pls):
+        if isinstance(p, Shard) and p.dim == dim:
+            step = -(-n // mesh.size(md))
+            start = min(mesh.get_local_rank(md) * step, n)
+            lo, n = lo + start, min(step, n - start)
+    return lo
+
+
+def grad_placements(in_pls, out_pls):
+    """The placements of the inputs' gradients for a function run per
+    rank (``local_map``'s ``in_grad_placements``): along a mesh
+    dimension where some output is sharded or partial, the ranks use a
+    replicated input on different data, so each rank's gradient of it is
+    a partial sum; elsewhere a gradient is placed as its input."""
+    varies = [any(o is not None and not o[m].is_replicate()
+                  for o in out_pls) for m in range(len(
+                      next(p for p in in_pls if p is not None)))]
+    return tuple(None if p is None else tuple(
+        Partial() if v and q.is_replicate() else q
+        for q, v in zip(p, varies, strict=True)) for p in in_pls)
+
+
+def local_region(fn, in_logical, out_logical, partial=None, reduce="sum"):
     """``fn`` run on each rank's shards when any argument is a
     ``DTensor`` and a mesh is active: the inputs are redistributed to
     ``in_logical`` (one logical tuple per positional argument, ``None``
@@ -270,8 +303,10 @@ def local_region(fn, in_logical, out_logical, partial=None):
     logical tuple, or a tuple of them for several outputs).  On the mesh
     axes of the logical names ``partial`` gives (a name or a tuple of
     names; with several outputs, one entry per output) the outputs are
-    partial sums, each rank's ``fn`` summing its shard of those axes.
-    Otherwise ``fn`` itself."""
+    partial results, each rank's ``fn`` reducing its shard of those axes,
+    and ``reduce`` ("sum" or "max") combines them.  Under autograd the
+    inputs' gradients are placed by :func:`grad_placements`.  Otherwise
+    ``fn`` itself."""
     def run(*args):
         mesh = _current_mesh()
         if mesh is None or not any(isinstance(a, DTensor) for a in args):
@@ -294,16 +329,25 @@ def local_region(fn, in_logical, out_logical, partial=None):
         def pl(logical, over=frozenset()):
             if logical is None:
                 return None
-            return tuple(Partial() if names[i] in over else p for i, p in
+            return tuple(Partial(reduce) if names[i] in over else p for i, p in
                          enumerate(placements(logical_spec(logical, mesh),
                                               mesh)))
-        return local_map(
-            fn, out_placements=tuple(pl(o, summed(e))
-                                     for o, e in zip(outs, parts,
-                                                     strict=True)),
-            in_placements=tuple(pl(i) for i in in_logical),
-            device_mesh=mesh, redistribute_inputs=True)(*args)
+        return placed_region(fn, tuple(pl(i) for i in in_logical),
+                             tuple(pl(o, summed(e)) for o, e in
+                                   zip(outs, parts, strict=True)),
+                             mesh)(*args)
     return run
+
+
+def placed_region(fn, in_pls, out_pls, mesh: DeviceMesh):
+    """``fn`` run on each rank's shards, the inputs redistributed to the
+    placements ``in_pls`` and the outputs wrapped as ``out_pls`` (the
+    body of :func:`local_region`, for a caller that derives placements
+    from its inputs' own); gradients placed by
+    :func:`grad_placements`."""
+    return local_map(fn, out_placements=out_pls, in_placements=in_pls,
+                     in_grad_placements=grad_placements(in_pls, out_pls),
+                     device_mesh=mesh, redistribute_inputs=True)
 
 
 _ACTIVE_MESH: threading.local = threading.local()

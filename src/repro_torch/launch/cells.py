@@ -17,7 +17,10 @@ Training cells run the FULL train step (forward + backward + optimizer
 update, microbatched); decode cells one ``decode_step``; the FIM cells
 one distributed mining round.  Model arguments are the port's modules;
 a train cell's optimizer is built by ``prepare`` over the distributed
-parameters (its state placed as they are).
+parameters (its state placed as they are) and is the step's second
+argument, as the JAX cell's ``opt_a``: its state is held apart from the
+step's allocations and counted in ``args_bytes`` in the JAX layout
+(``state_tree()``, the int32 step included).
 
 :func:`trace_cell` is the counterpart of ``lower_cell`` + ``compile``:
 on a mesh of more than one rank it distributes the arguments as
@@ -205,18 +208,23 @@ def _active_count(cfg, total: int) -> int:
     return total - n_moe_layers * (cfg.n_experts - cfg.top_k) * per_expert
 
 
-def _train_prepare(opt_cfg: OptConfig, leaves_fn, loss_of, n_mb: int):
-    """``prepare(model, batch) -> (model, step, batch)``: the optimizer
-    over the (distributed) parameters and the microbatched train step."""
+def _train_prepare(opt_cfg: OptConfig, leaves_fn):
+    """``prepare(model, batch) -> (model, opt, batch)``: the optimizer over
+    the (distributed) parameters, its state made here, before the counted
+    step, and so an argument of it as the JAX cell's ``opt_a`` is.  Each
+    state tensor is placed as its parameter is, aligned from the right
+    (``optimizer._zeros``): the placements ``opt_state_logical`` gives."""
     def prepare(model, batch):
-        opt = opt_init(leaves_fn(model), opt_cfg)
-        step = make_train_step(lambda b: loss_of(model, b), opt, n_mb)
-        return model, step, batch
+        return model, opt_init(leaves_fn(model), opt_cfg), batch
     return prepare
 
 
-def _run_train(model, step, batch):
-    return step(batch)
+def _train_step(loss_of, n_mb: int):
+    """The cell's ``step_fn(model, opt, batch)``: one microbatched train
+    step (gradients and the optimizer's update)."""
+    def run(model, opt, batch):
+        return make_train_step(lambda b: loss_of(model, b), opt, n_mb)(batch)
+    return run
 
 
 def _build_lm(spec: ArchSpec, shape: ShapeDef, mesh, rules: Dict[str, Any],
@@ -245,11 +253,11 @@ def _build_lm(spec: ArchSpec, shape: ShapeDef, mesh, rules: Dict[str, Any],
             return T.loss_fn(m, cfg, b["tokens"], b["labels"])
 
         return BuiltCell(spec.arch_id, shape.shape_id, shape.kind,
-                         _run_train, (model, batch_a), (p_sh, b_sh),
+                         _train_step(loss_of, dims["n_microbatches"]),
+                         (model, batch_a), (p_sh, b_sh),
                          donate_argnums=(0, 1), rules=rules,
                          model_params=n_params, active_params=n_active,
-                         prepare=_train_prepare(opt_cfg, lm_leaves, loss_of,
-                                                dims["n_microbatches"]))
+                         prepare=_train_prepare(opt_cfg, lm_leaves))
 
     if shape.kind == "prefill":
         B, S = dims["batch"], dims["seq"]
@@ -346,12 +354,11 @@ def _build_gnn(spec: ArchSpec, shape: ShapeDef, mesh, rules: Dict[str, Any],
         raise ValueError(shape.kind)
 
     b_sh = _shard_tree(mesh, b_log)
-    return BuiltCell(spec.arch_id, shape.shape_id, shape.kind, _run_train,
-                     (model, batch_a), (p_sh, b_sh),
+    return BuiltCell(spec.arch_id, shape.shape_id, shape.kind,
+                     _train_step(loss_of, 1), (model, batch_a), (p_sh, b_sh),
                      donate_argnums=(0, 1), rules=rules,
                      model_params=n_params, active_params=n_params,
-                     prepare=_train_prepare(opt_cfg, recsys_leaves, loss_of,
-                                            1))
+                     prepare=_train_prepare(opt_cfg, recsys_leaves))
 
 
 def _build_recsys(spec: ArchSpec, shape: ShapeDef, mesh,
@@ -420,13 +427,12 @@ def _build_recsys(spec: ArchSpec, shape: ShapeDef, mesh,
             return out if isinstance(out, tuple) else (out, {})
 
         b_sh = _shard_tree(mesh, b_log)
-        return BuiltCell(arch, shape.shape_id, shape.kind, _run_train,
+        return BuiltCell(arch, shape.shape_id, shape.kind,
+                         _train_step(loss_of, d.get("n_microbatches", 1)),
                          (model, batch_a), (p_sh, b_sh),
                          donate_argnums=(0, 1), rules=rules,
                          model_params=n_params, active_params=n_params,
-                         prepare=_train_prepare(
-                             opt_cfg, recsys_leaves, loss_of,
-                             d.get("n_microbatches", 1)))
+                         prepare=_train_prepare(opt_cfg, recsys_leaves))
 
     if shape.kind == "serve":
         B = d["batch"]
@@ -767,7 +773,8 @@ def _tensors(tree) -> list:
         elif isinstance(x, nn.Module):
             walk(list(x.parameters()))
         elif isinstance(x, torch.optim.Optimizer):
-            walk(list(x.state.values()))
+            # the JAX layout (``opt_a``): the moments and the int32 step
+            walk(x.state_tree())
         elif isinstance(x, dict):
             walk(list(x.values()))
         elif isinstance(x, (list, tuple)):

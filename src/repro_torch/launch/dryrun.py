@@ -37,6 +37,14 @@ Usage:
   python -m repro_torch.launch.dryrun --skip-existing      # resume a sweep
   python -m repro_torch.launch.dryrun --device cpu         # the CPU path
   python -m repro_torch.launch.dryrun --jobs 4             # cells in parallel
+  python -m repro_torch.launch.dryrun --compare <jax_outdir>  # port vs JAX
+
+``--compare`` reads the records of ``--outdir`` and those a run of
+``python -m repro.launch.dryrun --outdir <jax_outdir>`` wrote (JSON: no
+JAX import), and prints, for every cell and mesh both traced, per chip:
+FLOPs, argument bytes, peak (arguments + temporaries + the outputs that
+alias no argument) and collective link bytes by kind, each as port /
+JAX (ratio).
 """
 
 from __future__ import annotations
@@ -264,6 +272,82 @@ def _run_one_mesh(which: str, cells, args) -> int:
     return n_fail
 
 
+def _load(outdir: str) -> dict:
+    """``{(mesh, arch, shape): record}`` of the records in ``outdir``."""
+    out = {}
+    for name in sorted(os.listdir(outdir)):
+        if name.endswith(".json"):
+            with open(os.path.join(outdir, name)) as f:
+                rec = json.load(f)
+            if {"mesh", "arch", "shape"} <= set(rec):
+                out[(rec["mesh"], rec["arch"], rec["shape"])] = rec
+    return out
+
+
+def _per_chip(rec: dict) -> dict:
+    """The compared figures of one record, per chip: FLOPs, argument
+    bytes, peak and link bytes by kind.  The peak is the arguments, the
+    temporaries and the outputs that alias no argument: XLA's
+    temporaries leave the step's outputs out (a prefill's new cache),
+    where the port's peak, the most bytes live at once, holds them (its
+    records have no output field)."""
+    mem = rec.get("memory_analysis", {})
+    out = {"flops": rec.get("cost_analysis", {}).get("flops", 0.0),
+           "args": mem.get("argument_size_in_bytes", 0),
+           "peak": (mem.get("argument_size_in_bytes", 0)
+                    + mem.get("temp_size_in_bytes", 0)
+                    + mem.get("output_size_in_bytes", 0)
+                    - mem.get("alias_size_in_bytes", 0))}
+    coll = rec.get("collectives", {})
+    for kind in COLLECTIVE_KINDS + ("total",):
+        out[f"link {kind}"] = coll.get(kind, {}).get("link_bytes", 0.0)
+    return out
+
+
+def compare(port_dir: str, jax_dir: str) -> list:
+    """One row per (mesh, arch, shape) that both dry-runs traced (ok and
+    not skipped): each figure of :func:`_per_chip` as ``(port, jax)``."""
+    port, ref = _load(port_dir), _load(jax_dir)
+    rows = []
+    for key in sorted(set(port) & set(ref)):
+        a, b = port[key], ref[key]
+        if a.get("skip_reason") or b.get("skip_reason") \
+                or "memory_analysis" not in a or "memory_analysis" not in b:
+            continue
+        pa, pb = _per_chip(a), _per_chip(b)
+        rows.append({"cell": key, "ok": (a.get("ok"), b.get("ok")),
+                     **{k: (pa[k], pb[k]) for k in pa}})
+    return rows
+
+
+def _ratio(a: float, b: float) -> str:
+    if b == 0:
+        return "=" if a == 0 else "inf"
+    return f"{a / b:.3g}"
+
+
+def format_compare(rows: list) -> str:
+    """A markdown table: each figure as ``port / jax (ratio)``, link
+    bytes by kind where either side has any."""
+    head = ("| mesh | arch | shape | FLOPs | args | peak | link bytes "
+            "(total; by kind) |\n|---|---|---|---|---|---|---|")
+    lines = [head]
+    for r in rows:
+        mesh, arch, shape = r["cell"]
+        cells = [f"{a:.3g} / {b:.3g} ({_ratio(a, b)})"
+                 for a, b in (r[k] for k in ("flops", "args", "peak"))]
+        kinds = "; ".join(
+            f"{k[5:]} {r[k][0]:.3g} / {r[k][1]:.3g}"
+            for k in (f"link {c}" for c in COLLECTIVE_KINDS)
+            if r[k][0] or r[k][1])
+        a, b = r["link total"]
+        link = f"{a:.3g} / {b:.3g} ({_ratio(a, b)})" + (
+            f"; {kinds}" if kinds else "")
+        lines.append(f"| {mesh} | {arch} | {shape} | " + " | ".join(cells)
+                     + f" | {link} |")
+    return "\n".join(lines)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", choices=("single", "multi", "both"),
@@ -278,7 +362,13 @@ def main(argv=None) -> None:
                          "card's path (the custom-op kernels)")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells traced at once, each in its own process")
+    ap.add_argument("--compare", metavar="JAX_OUTDIR", default=None,
+                    help="trace nothing: print the records in --outdir "
+                         "against a JAX dry-run's, per chip")
     args = ap.parse_args(argv)
+    if args.compare:
+        print(format_compare(compare(args.outdir, args.compare)))
+        return
 
     cells = all_cells(include_fim=not args.no_fim)
     if args.arch:

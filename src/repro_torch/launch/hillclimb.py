@@ -33,7 +33,7 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch.cells import (BuiltCell, _abstract_init, _context,
                                       _count, _fim_shardings, _in_mode,
                                       _opt_cfg_for, _sds, _shard_tree,
-                                      _train_prepare, _run_train,
+                                      _train_prepare, _train_step,
                                       build_cell, recsys_logical, trace_cell)
 from repro_torch.distributed.sharding import active_mesh, use_rules
 from repro_torch.roofline.analysis import RooflineTerms
@@ -192,11 +192,12 @@ def climb_gnn(mesh, mesh_name, results, device="cuda"):
 
         # each rank's blocks are its own (the loss makes its own
         # collectives): the arguments stay plain tensors
-        cell = BuiltCell(arch, shape, "train_full_partitioned", _run_train,
-                         (model, batch_a), (None, None), (0, 1), {},
+        cell = BuiltCell(arch, shape, "train_full_partitioned",
+                         _train_step(loss_of, 1), (model, batch_a),
+                         (None, None), (0, 1), {},
                          model_params=_count(model), fake_mode=ctx.fake_mode,
                          prepare=_train_prepare(_opt_cfg_for(arch),
-                                                recsys_leaves, loss_of, 1),
+                                                recsys_leaves),
                          per_rank=True, device=ctx.device)
         return cell
 
@@ -208,6 +209,40 @@ def climb_gnn(mesh, mesh_name, results, device="cuda"):
                 "features sharded over model => per-layer all-gather "
                 "moves (N, F/16); predict t_coll down ~10x", v2, base)
     return results
+
+
+def index_fp32_step(cfg, topk: int = 100):
+    """The "offline item index (fp32)" variant's step: the query against
+    a precomputed ``(C, D)`` fp32 item index, ``(values, positions)``."""
+    from repro_torch.models import recsys as R
+
+    def step(m, b):
+        with torch.no_grad():
+            u = R.user_embed(m, cfg, b["user_id"], b["hist_ids"],
+                             b["hist_mask"])
+            return torch.topk(u @ b["index"].T, topk)
+    return step
+
+
+def index_int8_step(cfg, shortlist: int = 4096, topk: int = 100):
+    """The "offline index + int8 ES screen" variant's step: an int8 index
+    (``q8`` rows times their ``scale``) screens every candidate, and the
+    fp32 item tower rescores the ``shortlist`` best; returns ``(values
+    (1, topk), candidate ids (1, topk))``."""
+    from repro_torch.models import recsys as R
+
+    def step(m, b):
+        with torch.no_grad():
+            u = R.user_embed(m, cfg, b["user_id"], b["hist_ids"],
+                             b["hist_mask"])                  # (1, D)
+            # phase 1: int8 index scan (1/4 the bytes)
+            approx = (b["q8"].to(torch.float32) @ u[0]) * b["scale"]
+            short = torch.topk(approx[None], shortlist).indices[0]
+            # phase 2: exact fp32 tower on the shortlist
+            exact = u @ R.item_embed(m, cfg, short).T
+            vals, pos = torch.topk(exact, topk)
+            return vals, short.index_select(0, pos[0])[None]
+    return step
 
 
 def climb_twotower(mesh, mesh_name, results, device="cuda"):
@@ -261,23 +296,7 @@ def climb_twotower(mesh, mesh_name, results, device="cuda"):
                 "exact fp32 rescore of 4096 survivors; the counter keeps "
                 "bf16, so predict ~2x bytes down", v, base)
 
-    def index_fp32(m, b):
-        with torch.no_grad():
-            u = R.user_embed(m, cfg, b["user_id"], b["hist_ids"],
-                             b["hist_mask"])
-            return torch.topk(u @ b["index"].T, 100)
-
-    def index_int8(m, b):
-        with torch.no_grad():
-            u = R.user_embed(m, cfg, b["user_id"], b["hist_ids"],
-                             b["hist_mask"])                  # (1, D)
-            # phase 1: int8 index scan (1/4 the bytes)
-            approx = (b["q8"].to(torch.float32) @ u[0]) * b["scale"]
-            short = torch.topk(approx[None], 4096).indices[0]
-            # phase 2: exact fp32 tower on the shortlist
-            exact = u @ R.item_embed(m, cfg, short).T
-            vals, pos = torch.topk(exact, 100)
-            return vals, short.index_select(0, pos[0])[None]
+    index_fp32, index_int8 = index_fp32_step(cfg), index_int8_step(cfg)
 
     v2 = measure(arch, shape, mesh, mesh_name, family="recsys",
                  step_builder=lambda m: cell_of(

@@ -33,7 +33,9 @@ which the JAX package leaves to XLA.  Its sharding hints have no job
 on one card: on DTensors (the dry-run's traced cells) attention, the
 decode attention and the cache writes run per rank
 (``distributed.sharding.local_region``), batch over the data axes and
-heads over the model axis where both head counts divide it.
+heads over the model axis where both head counts divide it, or the
+cache's sequence over it where the rules shard ``kv_seq``; a sharded
+embedding table is looked up where its rows lie.
 """
 
 from __future__ import annotations
@@ -45,11 +47,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.sharding import (axis_coord, axis_size,
+from repro_torch.distributed.sharding import (axis_size, axis_start,
                                               constrain, current_mesh,
-                                              local_region)
+                                              local_index, local_region,
+                                              placed_region, shard_start)
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -189,9 +192,67 @@ def embed_init(vocab: int, d: int, *, generator: torch.Generator,
 
 def embed_lookup(table: Tensor, ids: Tensor) -> Tensor:
     """``table[ids]``: ids (...,) -> (..., D).  An ``index_select``, whose
-    gradient is an ``index_add_`` (no host sync on CUDA)."""
+    gradient is an ``index_add_`` (no host sync on CUDA).  A ``DTensor``
+    table (a traced cell on a mesh) is looked up where its rows lie:
+    :func:`_sharded_lookup`."""
+    if isinstance(table, DTensor):
+        return _sharded_lookup(table, ids)
     return table.index_select(0, ids.reshape(-1)).reshape(
         *ids.shape, table.shape[-1])
+
+
+def _masked_rows(table: Tensor, ids: Tensor, first: int) -> Tensor:
+    """Row ``ids - first`` of ``table`` (a shard of a table's rows that
+    starts at row ``first``) where the shard holds it, zeros elsewhere:
+    ids (...,) -> (..., D)."""
+    loc, held = local_index(ids, first, table.shape[0])
+    e = table.index_select(0, loc.reshape(-1)).reshape(*ids.shape,
+                                                       table.shape[-1])
+    return torch.where(held[..., None], e, e.new_zeros(()))
+
+
+def _sharded_lookup(table: DTensor, ids: Tensor) -> DTensor:
+    """``table[ids]`` per rank: each rank looks up the ids on its rows
+    (:func:`_masked_rows`), so no rank gathers the table's rows (the JAX
+    package's row-sharded ``jnp.take``, which XLA partitions the same
+    way).  The ids may have any placement (a plain tensor is
+    replicated).  Per mesh dimension: where the table's rows are sharded
+    every rank takes all the ids and the output is a partial sum; where
+    its columns are, either the columns are gathered (as FSDP gathers a
+    weight) and the ids keep their sharding, or every rank takes all the
+    ids and the output is sharded along D, whichever moves fewer
+    elements (the rank's table shard against the ids' rows of its
+    columns: a prefill gathers, a decode step does not); elsewhere the
+    output is placed as the ids are."""
+    mesh = table.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, (Replicate(),) * mesh.ndim,
+                                 run_check=False)
+    t_pls, id_pls, out_pls = [], [], []
+    held = table._local_tensor.numel()
+    for md, (pt, pi) in enumerate(zip(table.placements, ids.placements,
+                                      strict=True)):
+        if isinstance(pt, Shard) and pt.dim == 0:
+            t_pls.append(pt)
+            id_pls.append(Replicate())
+            out_pls.append(Partial())
+        elif isinstance(pt, Shard) and isinstance(pi, Shard) and \
+                held * (mesh.size(md) - 1) < ids.numel() * table.shape[1]:
+            t_pls.append(Replicate())
+            id_pls.append(pi)
+            out_pls.append(pi)
+        elif isinstance(pt, Shard):
+            t_pls.append(pt)
+            id_pls.append(Replicate())
+            out_pls.append(Shard(ids.dim()))
+        else:
+            t_pls.append(pt)
+            id_pls.append(pi)
+            out_pls.append(pi)
+    first = shard_start(table.shape, table.placements, mesh)
+    return placed_region(lambda t, i: _masked_rows(t, i, first),
+                         (tuple(t_pls), tuple(id_pls)), (tuple(out_pls),),
+                         mesh)(table, ids)
 
 
 # ---------------------------------------------------------------------------
@@ -264,9 +325,12 @@ def _proj(x: Tensor, w: Tensor) -> Tensor:
 
 def _qkv(p: GQA, x: Tensor, cd: torch.dtype) -> Tuple[Tensor, Tensor, Tensor]:
     xc = x.to(cd)
-    q = _proj(xc, p.wq.to(cd))
-    k = _proj(xc, p.wk.to(cd))
-    v = _proj(xc, p.wv.to(cd))
+    # On a mesh whose rules shard ``embed`` over the data axes (FSDP) the
+    # weights are gathered along it for their use, as XLA gathers them,
+    # so DTensor reshards no activation; the identity on one card.
+    q = _proj(xc, constrain(p.wq.to(cd), (None, "heads", "head_dim")))
+    k = _proj(xc, constrain(p.wk.to(cd), (None, "kv_heads", "head_dim")))
+    v = _proj(xc, constrain(p.wv.to(cd), (None, "kv_heads", "head_dim")))
     if p.qkv_bias:
         q = q + p.bq.to(cd)
         k = k + p.bk.to(cd)
@@ -277,7 +341,8 @@ def _qkv(p: GQA, x: Tensor, cd: torch.dtype) -> Tuple[Tensor, Tensor, Tensor]:
 def _out(p: GQA, o: Tensor, cd: torch.dtype) -> Tensor:
     """``einsum("bshk,hkd->bsd", o, wo)`` as one 2-D matmul."""
     h, k, d = p.wo.shape
-    return o.to(cd).flatten(-2) @ p.wo.to(cd).reshape(h * k, d)
+    wo = constrain(p.wo.to(cd), ("heads", "head_dim", None))   # FSDP: _qkv
+    return o.to(cd).flatten(-2) @ wo.reshape(h * k, d)
 
 
 def chunked_attention(q: Tensor,            # (B, Sq, H, Dh)
@@ -359,7 +424,23 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, attention: str, *,
                                backend=backend)
     else:
         raise ValueError(f"unknown attention {attention!r}")
-    axes = head_axes(q.shape[2], k.shape[2])
+    H, KH = q.shape[2], k.shape[2]
+    axes = head_axes(H, KH)
+    n, G = axis_size("heads"), H // KH
+    if axes[2] is None and n > 1 and H % n == 0 and (
+            (H // n) % G == 0 or G % (H // n) == 0):
+        # the query heads divide the model axis, the kv heads do not: each
+        # rank attends its query heads with the kv heads they group into,
+        # taken from the replicated k and v
+        q_axes, kv_axes = ("batch", None, "heads", None), ("batch",) + (
+            None,) * 3
+
+        def grouped(q_, k_, v_):
+            first = axis_start("heads", H)
+            kv = slice(first // G, (first + q_.shape[2] - 1) // G + 1)
+            return fn(q_, k_[:, :, kv], v_[:, :, kv])
+        return local_region(grouped, (q_axes, kv_axes, kv_axes),
+                            q_axes)(q, k, v)
     return local_region(fn, (axes, axes, axes), axes)(q, k, v)
 
 
@@ -421,17 +502,80 @@ def gqa_decode(p: GQA, x: Tensor, cache: Dict[str, Tensor], *,
 
     S = cache["k"].shape[1]
     slot = torch.remainder(pos, S) if window else torch.clamp(pos, max=S - 1)
+    valid = torch.clamp(pos + 1, max=S)
+    if isinstance(cache["k"], DTensor) and axis_size("kv_seq") > 1:
+        return _seq_sharded_decode(p, q, k_new, v_new, cache, slot, valid,
+                                   cd)
     axes = head_axes(q.shape[2], k_new.shape[2])
     row = (axes[0],) + axes[2:]
     put = local_region(_batched_set, (axes, row, ("batch",)), axes)
     k_cache = put(cache["k"], k_new[:, 0], slot)
     v_cache = put(cache["v"], v_new[:, 0], slot)
-    valid = torch.clamp(pos + 1, max=S)
     o = local_region(_direct_decode_attention,
                      (axes, axes, axes, ("batch",)), axes)(
         q, k_cache, v_cache, valid)
     y = _out(p, o, cd)
     return y, {"k": k_cache, "v": v_cache, "len": pos + 1}
+
+
+def _seq_sharded_decode(p: GQA, q, k_new, v_new, cache, slot, valid, cd):
+    """:func:`gqa_decode` on a mesh whose cache is sharded along its
+    sequence (``kv_seq``: kv heads that do not cover the model axis), as
+    the JAX rules place it: each rank writes the new entry only where the
+    slot is its own, and attends over its slots alone; the ranks' softmax
+    statistics (max, sum, weighted values) are then combined, so only
+    those cross the links, never the cache."""
+    S = cache["k"].shape[1]
+    c_axes = ("batch", "kv_seq", None, None)
+
+    def put_local(buf, val, slot_):
+        return _batched_set(buf, val, slot_, axis_start("kv_seq", S))
+
+    def stats_local(q_, k_, v_, valid_):
+        m, den, acc = _decode_partial(q_, k_, v_, valid_,
+                                      axis_start("kv_seq", S))
+        return m[None], den[None], acc[None]
+
+    put = local_region(put_local, (c_axes, ("batch", None, None),
+                                   ("batch",)), c_axes)
+    k_cache = put(cache["k"], k_new[:, 0], slot)
+    v_cache = put(cache["v"], v_new[:, 0], slot)
+    st = ("kv_seq", "batch", None, None, None)
+    m, den, acc = local_region(
+        stats_local, (("batch", None, None, None), c_axes, c_axes,
+                      ("batch",)), (st, st, st + (None,)))(
+        q, k_cache, v_cache, valid)
+    w = torch.exp(m - m.amax(0))                 # (n, B, 1, KH, G)
+    o = (acc * w[..., None]).sum(0) / torch.clamp(
+        (den * w).sum(0)[..., None], min=1e-30)
+    B, _, H, _ = q.shape
+    o = o.reshape(B, 1, H, o.shape[-1]).to(q.dtype)
+    y = _out(p, o, cd)
+    return y, {"k": k_cache, "v": v_cache, "len": cache["len"] + 1}
+
+
+def _decode_partial(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
+                    first: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """Single-token attention over a run of cache slots that starts at
+    slot ``first``, the slots from ``valid`` on masked, unnormalised: the
+    fp32 max ``(B, 1, KH, G)``, the sum of ``exp(score - max)`` and the
+    weighted values ``(B, 1, KH, G, Dv)``.  A run of masked slots only
+    gives weights that the combination with slot 0's run (always valid)
+    sends to zero."""
+    B, _, H, Dh = q.shape
+    _, S, KH, Dv = v.shape
+    qg = q.reshape(B, 1, KH, H // KH, Dh).to(torch.float32)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg,
+                     k.to(torch.float32)) * (Dh ** -0.5)
+    slots = first + torch.arange(S, device=q.device)
+    # masked_fill with a Python scalar: a scalar *tensor* made here would
+    # be an upload from pageable memory, which syncs with the host.
+    s = s.masked_fill((slots[None, :] >= valid[:, None])
+                      [:, None, None, None, :], -1e30)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    return m, e.sum(dim=-1), torch.einsum("bqkgs,bskv->bqkgv", e,
+                                          v.to(torch.float32))
 
 
 def _direct_decode_attention(q: Tensor,       # (B, 1, H, Dh)
@@ -440,27 +584,23 @@ def _direct_decode_attention(q: Tensor,       # (B, 1, H, Dh)
                              valid: Tensor,   # (B,)
                              ) -> Tensor:
     """Single-token attention over the whole cache, fp32 softmax over the
-    first ``valid`` slots of each sequence (no host sync)."""
-    B, _, H, Dh = q.shape
-    _, S, KH, Dv = v.shape
-    G = H // KH
-    qg = q.reshape(B, 1, KH, G, Dh).to(torch.float32)
-    s = torch.einsum("bqkgd,bskd->bqkgs", qg,
-                     k.to(torch.float32)) * (Dh ** -0.5)
-    masked = torch.arange(S, device=q.device)[None, :] >= valid[:, None]
-    # masked_fill with a Python scalar: a scalar *tensor* made here would
-    # be an upload from pageable memory, which syncs with the host.
-    s = s.masked_fill(masked[:, None, None, None, :], -1e30)
-    a = torch.softmax(s, dim=-1)
-    o = torch.einsum("bqkgs,bskv->bqkgv", a, v.to(torch.float32))
-    return o.reshape(B, 1, H, Dv).to(q.dtype)
+    first ``valid`` slots of each sequence (no host sync):
+    :func:`_decode_partial` from slot 0, normalised."""
+    B, _, H, _ = q.shape
+    _, den, acc = _decode_partial(q, k, v, valid, 0)
+    return (acc / den[..., None]).reshape(B, 1, H, -1).to(q.dtype)
 
 
-def _batched_set(buf: Tensor, val: Tensor, idx: Tensor) -> Tensor:
-    """buf: (B, S, ...); val: (B, ...); idx: (B,) -> ``buf[b, idx[b]] =
-    val[b]`` in place; returns ``buf``."""
+def _batched_set(buf: Tensor, val: Tensor, idx: Tensor,
+                 first: int = 0) -> Tensor:
+    """buf: (B, S, ...), a run of slots that starts at slot ``first``;
+    val: (B, ...); idx: (B,) -> ``buf[b, idx[b] - first] = val[b]`` in
+    place where the run holds slot ``idx[b]``; returns ``buf``."""
     rows = torch.arange(buf.shape[0], device=buf.device)
-    buf[rows, idx.to(torch.int64)] = val.to(buf.dtype)
+    loc, held = local_index(idx.to(torch.int64), first, buf.shape[1])
+    cur = buf[rows, loc]
+    keep = held.reshape((-1,) + (1,) * (cur.dim() - 1))
+    buf[rows, loc] = torch.where(keep, val.to(buf.dtype), cur)
     return buf
 
 
@@ -647,11 +787,12 @@ def swiglu(p: SwiGLU, x: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
 def _swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
             cd: torch.dtype) -> Tensor:
     xc = x.to(cd)
-    g = xc @ w_gate.to(cd)
-    u = xc @ w_up.to(cd)
+    # FSDP-sharded weights gathered along ``embed`` for their use (_qkv)
+    g = xc @ constrain(w_gate.to(cd), (None, "ff"))
+    u = xc @ constrain(w_up.to(cd), (None, "ff"))
     h = torch.nn.functional.silu(g.to(torch.float32)).to(cd) * u
     h = constrain(h, ("batch",) + (None,) * (h.dim() - 2) + ("act_ff",))
-    return h @ w_down.to(cd)
+    return h @ constrain(w_down.to(cd), ("ff", None))
 
 
 
@@ -838,8 +979,7 @@ def _moe_sharded(p: MoE, x: Tensor, dims: MoEDims, cd: torch.dtype,
     the whole batch's."""
     B, S, D = x.shape
     E, K = dims.n_experts, dims.top_k
-    n_e = axis_size("experts")
-    e0 = axis_coord("experts") * (E // n_e)
+    e0 = axis_start("experts", E)
     g_loc = G // axis_size("batch")
     shared = () if p.shared is None else (
         p.shared.w_gate, p.shared.w_up, p.shared.w_down)

@@ -19,16 +19,17 @@ sampled softmax with the logQ correction.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.distributed.sharding import (axis_size, constrain,
-                                              local_region)
+from repro_torch.distributed.sharding import (axis_size, axis_start,
+                                              constrain, current_mesh,
+                                              local_index, local_region)
 from repro_torch.models.layers import DTYPES, _normal, _param, embed_lookup
 
 Tensor = torch.Tensor
@@ -76,25 +77,58 @@ def embedding_bag(p: ParamTree, ids: Tensor, mask: Optional[Tensor],
     version on CUDA (``chip_smoke.py`` only).  ``max`` is plain PyTorch
     on every device, as the JAX package computes it in jnp outside its
     kernel: the largest valid row entry, ``finfo.min`` for an empty bag
-    (every slot's row is read, masked or not)."""
-    if combiner == "max":
-        e = embed_lookup(p.table, ids)                      # (B, L, D)
-        if mask is None:
-            return e.amax(dim=-2)
-        neg = torch.finfo(e.dtype).min
-        return torch.where(mask[..., None] != 0, e, neg).amax(dim=-2)
-    if combiner not in ("sum", "mean"):
+    (every slot's row is read, masked or not).  On a mesh the table stays
+    row-sharded (:func:`_bag_rows`)."""
+    if combiner not in ("sum", "mean", "max"):
         raise ValueError(combiner)
     if mask is None:
         mask = torch.ones(ids.shape, dtype=torch.int32, device=ids.device)
-    # bag-sharded on a mesh (each rank sums its bags over the whole
-    # table), where the bags divide the batch axes
+    if isinstance(p.table, DTensor) and current_mesh() is not None:
+        return _bag_rows(p.table, ids, mask, combiner, backend)
+    if combiner == "max":
+        return _bag_max(p.table, ids, mask)
+    return ops.embedding_bag(p.table, ids, mask, combiner=combiner,
+                             backend=backend)
+
+
+def _bag_max(table: Tensor, ids: Tensor, mask: Tensor) -> Tensor:
+    e = embed_lookup(table, ids)                            # (B, L, D)
+    neg = torch.finfo(e.dtype).min
+    return torch.where(mask[..., None] != 0, e, neg).amax(dim=-2)
+
+
+def _bag_rows(table, ids: Tensor, mask: Tensor, combiner: str,
+              backend: str) -> Tensor:
+    """The bag on a mesh, as the JAX package's row-sharded table gives
+    it: the table keeps its rows' sharding (``table_rows``) and each rank
+    reduces the slots whose rows it holds (ids shifted by its first row,
+    the mask cleared for the others) through the kernel, or ``max`` in
+    plain PyTorch; the ``(B, D)`` output is partial over the table's
+    mesh axes (sums, or maxima for ``max``), reduced on return: only it
+    crosses the links.  ``mean`` divides each rank's sum by the bag's
+    whole count, the same on every rank.  The bags stay sharded over the
+    batch axes where they divide them."""
     bags = (("batch", None) if ids.shape[0] % axis_size("batch") == 0
             else (None, None))
-    return local_region(functools.partial(ops.embedding_bag,
-                                          combiner=combiner,
-                                          backend=backend),
-                        ((None, None), bags, bags), bags)(p.table, ids, mask)
+    rows = ("table_rows", "table_dim")
+    n_rows = table.shape[0]
+
+    def local(t, ids_, mask_):
+        loc, held = local_index(ids_, axis_start("table_rows", n_rows),
+                                t.shape[0])
+        held = held & (mask_ != 0)
+        if combiner == "max":
+            return _bag_max(t, loc, held)
+        s = ops.embedding_bag(t, loc, held, combiner="sum", backend=backend)
+        if combiner == "sum":
+            return s
+        count = (mask_ != 0).sum(dim=-1, keepdim=True).to(s.dtype)
+        return s / count.clamp_min(1.0)
+
+    out = local_region(local, (rows, bags, bags), bags, partial="table_rows",
+                       reduce="max" if combiner == "max" else "sum"
+                       )(table, ids, mask)
+    return constrain(out, bags)
 
 
 def _mlp_tree(dims: Sequence[int], dtype, generator: torch.Generator):
@@ -411,7 +445,11 @@ def xdeepfm_score_candidates(params: ParamTree, cfg: XDeepFMConfig,
     """Score a large candidate set (the ``retrieval_cand`` shape): the
     (C, m) field rows are scored ``XDEEPFM_SCORE_BLOCK`` at a time through
     :func:`xdeepfm_forward` (the JAX cell scores all C at once and relies
-    on sharding the candidate axis); (C,) logits."""
+    on sharding the candidate axis, as the port does on a mesh); (C,)
+    logits."""
+    if isinstance(field_ids, DTensor):
+        # a block of the sharded candidate axis would gather it
+        return xdeepfm_forward(params, cfg, field_ids)
     return torch.cat([xdeepfm_forward(params, cfg,
                                       field_ids[i:i + XDEEPFM_SCORE_BLOCK])
                       for i in range(0, field_ids.shape[0],
@@ -498,13 +536,34 @@ def twotower_loss(params: ParamTree, cfg: TwoTowerConfig, user_id: Tensor,
     u = user_embed(params, cfg, user_id, hist_ids, hist_mask,
                    backend=backend)                           # (B, D)
     it = item_embed(params, cfg, pos_item)                    # (B, D)
+    # every query scores every item of the batch: on a mesh the (B, D)
+    # items are gathered, so the (B, B) logits stay sharded by rows and
+    # are never a partial sum
+    it = constrain(it, (None, None))
     logits = (u @ it.T) / cfg.temperature                     # (B, B)
     logits = logits.to(torch.float32) - item_logq[None, :]
     labels = torch.arange(u.shape[0], device=u.device)
     logp = torch.log_softmax(logits, dim=-1)
-    loss = -logp.diagonal().mean()
+    loss = -_row_entries(logp, labels).mean()
     acc = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
     return loss, {"ce": loss.detach(), "in_batch_acc": acc}
+
+
+def _row_entries(x: Tensor, cols: Tensor) -> Tensor:
+    """``x[i, cols[i]]`` as ``(B, 1)``.  On a mesh each rank takes the
+    entries of its rows (the rows sharded like the batch, each whole), so
+    the gather's backward writes the rank's rows only, never a whole
+    ``(B, B)`` gradient."""
+    def take(x_, c_):
+        return torch.gather(x_, -1, c_[:, None])
+    if not isinstance(x, DTensor):
+        return take(x, cols)
+    if not isinstance(cols, DTensor):
+        mesh = x.device_mesh
+        cols = DTensor.from_local(cols, mesh, (Replicate(),) * mesh.ndim,
+                                  run_check=False)
+    return local_region(take, (("batch", None), ("batch",)),
+                        ("batch", None))(x, cols)
 
 
 def retrieval_scores(params: ParamTree, cfg: TwoTowerConfig, user_id: Tensor,

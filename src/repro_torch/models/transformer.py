@@ -32,10 +32,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import (constrain, local_region,
+from repro_torch.distributed.sharding import (axis_start, constrain,
+                                              local_index, local_region,
                                               make_like)
 from repro_torch.models import layers as L
 
@@ -314,7 +316,9 @@ def forward(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
             aux_total = aux_total + aux
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
     dt = cfg.param_dtype
-    logits = x.to(dt) @ model.head_table().to(dt).T
+    # FSDP: the head gathered along ``embed`` for its use (layers._qkv)
+    table = constrain(model.head_table().to(dt), ("vocab", None))
+    logits = x.to(dt) @ table.T
     logits = constrain(logits, ("batch", None, "vocab_act"))
     return logits, aux_total
 
@@ -337,6 +341,27 @@ class _ExpSum(torch.autograd.Function):
         return (e.mul_(g[..., None])).to(logits.dtype), None
 
 
+def _label_logit(logits: Tensor, labels: Tensor) -> Tensor:
+    """``logits[..., labels]``: (B, S, V), (B, S) -> (B, S).  On a
+    vocab-sharded mesh each rank takes the labels that fall in its
+    vocab shard (zeros for the others), a partial sum reduced here while
+    it has the labels' shape; so the gather's backward writes into the
+    rank's logits shard only, never a whole (B, S, V) gradient."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    n_vocab = logits.shape[-1]
+
+    def local(lg, lab):
+        loc, held = local_index(lab, axis_start("vocab_act", n_vocab),
+                                lg.shape[-1])
+        got = torch.gather(lg, -1, loc[..., None])
+        return torch.where(held, got[..., 0], got.new_zeros(()))
+
+    out = local_region(local, (("batch", None, "vocab_act"), ("batch", None)),
+                       ("batch", None), partial="vocab_act")(logits, labels)
+    return constrain(out, ("batch", None))
+
+
 def loss_fn(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
             labels: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Causal LM loss; labels are next-token ids, -1 = masked.  As in the
@@ -353,10 +378,7 @@ def loss_fn(model: TransformerLM, cfg: LMConfig, tokens: Tensor,
     lse = torch.log(_ExpSum.apply(logits, m)) + m[..., 0].to(torch.float32)
     valid = labels >= 0
     safe = torch.clamp(labels, min=0).to(torch.int64)
-    # the gathered logit is a partial sum on a vocab-sharded mesh:
-    # reduce it while it still has the index's shape
-    label_logit = constrain(torch.gather(logits, -1, safe[..., None]),
-                            ("batch", None, None))[..., 0].to(torch.float32)
+    label_logit = _label_logit(logits, safe).to(torch.float32)
     n_valid = torch.clamp(valid.sum(), min=1)
     ce = ((lse - label_logit) * valid).sum() / n_valid
     total = ce + cfg.moe_aux_weight * aux

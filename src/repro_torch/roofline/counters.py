@@ -17,7 +17,11 @@ reaches dispatch it counts:
   on the HBM traffic: XLA's ``bytes accessed`` counts fused kernels,
   which keep their intermediates on chip.
 * ``collectives``: one ``(kind, operand bytes)`` event per collective
-  op, functional or in-place ``c10d`` (``roofline.comms``).
+  op, functional or in-place ``c10d`` (``roofline.comms``), those that
+  DTensor sends inside its own dispatch of an op (the redistributions its
+  sharding rules ask for) included: a second mode, under this one, lets
+  DTensor run first and logs what reaches it (as torch's
+  ``CommDebugMode`` does).
 * ``peak``: the most bytes held at once by the storages the step
   allocated (a ``DTensor``'s local shard; a storage counts from the op
   that first returns it until it is freed), over those of the
@@ -28,8 +32,9 @@ reaches dispatch it counts:
   plain tensors the two agree.
 
 Ops that DTensor runs on local shards inside its own dispatch are not
-seen twice: the mode sees the ``DTensor`` op once, and the collectives
-of a redistribution (which run outside that dispatch) on local tensors.
+counted twice: FLOPs and bytes count the ``DTensor`` op once, and only
+the collectives are read from inside its dispatch.  The local copies of
+those redistributions are not in ``bytes`` or ``peak``.
 """
 
 from __future__ import annotations
@@ -83,6 +88,32 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t._local_tensor if isinstance(t, DTensor) else t
 
 
+class _Collectives(TorchDispatchMode):
+    """Logs every collective op into ``log``.  It returns
+    ``NotImplemented`` for ``DTensor`` ops, so DTensor dispatches them
+    with this mode still active and the collectives of its
+    redistributions reach it as local ops."""
+
+    def __init__(self, log: List[Tuple[str, float]]):
+        super().__init__()
+        self.log = log
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func.namespace in COLLECTIVE_NAMESPACES:
+            kind, arg = collective_kind(func.namespace, func._opname)
+            if kind is not None:
+                operands = [t for t in tree_leaves(
+                    (args, kwargs) if arg is None else args[arg])
+                    if isinstance(t, torch.Tensor)]
+                self.log.append(
+                    (kind, float(sum(_nbytes(t) for t in operands))))
+        return out
+
+
 class StepCounter(TorchDispatchMode):
     """Per-rank flops, bytes, collectives and peak memory of everything
     run under it."""
@@ -96,6 +127,17 @@ class StepCounter(TorchDispatchMode):
         self.current = 0
         self.peak = 0
         self._live: Dict[int, int] = {}
+        self._log = _Collectives(self.collectives)
+
+    def __enter__(self):
+        self._log.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._log.__exit__(*exc)
 
     def hold(self, tensors: Iterable[torch.Tensor]) -> None:
         """Storages that exist before the step (its arguments): never
@@ -130,14 +172,6 @@ class StepCounter(TorchDispatchMode):
         self.ops += 1
         tensors_in = [a for a in tree_leaves((args, kwargs))
                       if isinstance(a, torch.Tensor)]
-        if ns in COLLECTIVE_NAMESPACES:
-            kind, arg = collective_kind(ns, func._opname)
-            if kind is not None:
-                operands = tensors_in if arg is None else [
-                    t for t in tree_leaves(args[arg])
-                    if isinstance(t, torch.Tensor)]
-                self.collectives.append(
-                    (kind, float(sum(_nbytes(t) for t in operands))))
         packet = func._overloadpacket
         if packet in flop_registry:
             first = next((o for o in tree_leaves(out)

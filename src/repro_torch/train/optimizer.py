@@ -143,7 +143,7 @@ class _LeafOptimizer(torch.optim.Optimizer):
         elif len(grads) != len(parts):
             raise ValueError(f"{len(grads)} gradients for {len(parts)} "
                              "parameters")
-        it = iter(grads)
+        it = iter(_placed_as(g, p) for g, p in zip(grads, parts, strict=True))
         return [[next(it) for _ in g["params"]] for g in self.param_groups]
 
     def state_tree(self):
@@ -173,6 +173,17 @@ class _LeafOptimizer(torch.optim.Optimizer):
                                    self.cfg.grad_clip)
         self.step_count += 1
         return per_group, lr_at(self.cfg, self.step_count), norm
+
+
+def _placed_as(g: Tensor, p: Tensor) -> Tensor:
+    """A ``DTensor`` gradient placed as its parameter, once, before the
+    update reads it: the gradient of a replicated parameter comes out of
+    autograd as a partial sum, which each of its uses would otherwise
+    reduce again."""
+    if isinstance(g, DTensor) and isinstance(p, DTensor) \
+            and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _zeros(shape, like: Tensor, drop: Optional[int] = None) -> Tensor:
@@ -234,9 +245,13 @@ class AdamW(_LeafOptimizer):
 
 
 class Adafactor(_LeafOptimizer):
-    """Factored second moment (Shazeer & Stern 2018).  A stacked leaf's
-    gradients are stacked (one leaf-sized temporary) because its moments
-    and its update RMS span the layers."""
+    """Factored second moment (Shazeer & Stern 2018).  A stacked leaf is
+    worked part by part (its gradients are never stacked): a part's
+    moments are its slice of the stacked ones, except where the stack
+    couples the layers (parts of one dimension: the column moment and the
+    row moments' mean span the layers), and the update RMS sums over the
+    parts.  So every layer of a stack moves the same bytes, whatever the
+    depth."""
 
     _STATE = ("v",)
 
@@ -249,6 +264,40 @@ class Adafactor(_LeafOptimizer):
                                        drop=-2)}}
         return {"v": {"v": _zeros(shape, p0)}}
 
+    @staticmethod
+    def _g2(g: Tensor) -> Tensor:
+        return g.to(torch.float32).square().add_(1e-30)
+
+    def _deltas(self, group, gs, decay: float) -> List[Tensor]:
+        """Each part's ``vr ⊗ vc / mean(vr)`` after the moments' update."""
+        v = self.state[group["params"][0]]["v"]
+        stacked, ndim = group["stacked"], len(self._shape(group))
+        if ndim < 2:                                   # a vector, alone
+            v["v"].mul_(decay).add_(self._g2(gs[0]), alpha=1 - decay)
+            return [v["v"].clone()]
+        if stacked and ndim == 2:                      # layers of vectors
+            vr, col = v["vr"], None
+            for i, g in enumerate(gs):
+                g2 = self._g2(g)
+                vr[i].mul_(decay).add_(g2.mean(), alpha=1 - decay)
+                col = g2 if col is None else col.add_(g2)
+            v["vc"].mul_(decay).add_(col.div_(len(gs)), alpha=1 - decay)
+            del col
+            den = torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
+            return [(vr[i] * v["vc"]).div_(den) for i in range(len(gs))]
+        out = []
+        for i, g in enumerate(gs):
+            vr = v["vr"][i] if stacked else v["vr"]
+            vc = v["vc"][i] if stacked else v["vc"]
+            g2 = self._g2(g)
+            vr.mul_(decay).add_(g2.mean(-1), alpha=1 - decay)
+            vc.mul_(decay).add_(g2.mean(-2), alpha=1 - decay)
+            del g2
+            d = vr[..., None] * vc[..., None, :]
+            out.append(d.div_(torch.clamp(
+                vr.mean(-1, keepdim=True)[..., None], min=1e-30)))
+        return out
+
     @torch.no_grad()
     def step(self, closure=None, grads=None) -> Dict[str, object]:
         if closure is not None:
@@ -257,33 +306,18 @@ class Adafactor(_LeafOptimizer):
         cfg = self.cfg
         decay = _f32(1 - np.float32(self.step_count + 1) ** np.float32(-0.8))
         for group, gs in zip(self.param_groups, per_group, strict=True):
-            v = self.state[group["params"][0]]["v"]
-            if not group["stacked"]:
-                G = gs[0]
-            elif len(gs) == 1:
-                G = gs[0].unsqueeze(0)
-            else:
-                G = torch.stack(gs)
-            g2 = G.to(torch.float32).square().add_(1e-30)
-            if G.dim() >= 2:
-                v["vr"].mul_(decay).add_(g2.mean(-1), alpha=1 - decay)
-                v["vc"].mul_(decay).add_(g2.mean(-2), alpha=1 - decay)
-                del g2
-                vr = v["vr"]
-                delta = vr[..., None] * v["vc"][..., None, :]
-                delta.div_(torch.clamp(vr.mean(-1, keepdim=True)[..., None],
-                                       min=1e-30))
-            else:
-                v["v"].mul_(decay).add_(g2, alpha=1 - decay)
-                del g2
-                delta = v["v"].clone()
-            delta.add_(cfg.eps).sqrt_()
-            delta = torch.div(G, delta, out=delta)
-            ms = torch.linalg.vector_norm(delta).square() / delta.numel()
-            delta.div_(torch.clamp(torch.sqrt(ms + 1e-30), min=1.0))
-            for i, p in enumerate(group["params"]):
-                d = delta[i] if group["stacked"] else delta
-                if delta.dim() >= 2:
+            deltas = self._deltas(group, gs, decay)
+            ssq, numel = 0.0, 0
+            for g, d in zip(gs, deltas, strict=True):
+                d.add_(cfg.eps).sqrt_()
+                torch.div(g, d, out=d)
+                ssq = ssq + torch.linalg.vector_norm(d).square()
+                numel += d.numel()
+            scale = torch.clamp(torch.sqrt(ssq / numel + 1e-30), min=1.0)
+            decayed = len(self._shape(group)) >= 2
+            for p, d in zip(group["params"], deltas, strict=True):
+                d.div_(scale)
+                if decayed:
                     d.add_(p, alpha=cfg.weight_decay)
                 p.add_(d, alpha=-lr)
         return {"lr": lr, "grad_norm": norm}

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.tree import flatten_with_paths, tree_from_paths
 
@@ -30,8 +31,25 @@ def _split_microbatches(batch, n_mb: int):
         if x.shape[0] % n_mb:
             raise ValueError(f"batch leaf {path!r} of {x.shape[0]} rows "
                              f"does not split into {n_mb} microbatches")
-    return [tree_from_paths((p, x.chunk(n_mb, 0)[i]) for p, x in flat)
+    return [tree_from_paths((p, _chunk(x, n_mb, i)) for p, x in flat)
             for i in range(n_mb)]
+
+
+def _chunk(x: Tensor, n_mb: int, i: int) -> Tensor:
+    """Microbatch ``i`` of a batch leaf: its rows ``i * B / n_mb`` on.  A
+    ``DTensor`` batch sharded along its rows (a traced cell on a mesh)
+    keeps that sharding: each rank gives the ``i``-th share of its own
+    rows (a global chunk would lie on a few ranks, and DTensor would
+    replicate it), as XLA's partitioned reshape keeps the batch axis
+    sharded."""
+    if not (isinstance(x, DTensor) and any(
+            isinstance(p, Shard) and p.dim == 0 for p in x.placements)):
+        return x.chunk(n_mb, 0)[i]
+    local = x._local_tensor.chunk(n_mb, 0)[i]
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False,
+                              shape=(x.shape[0] // n_mb,) + x.shape[1:],
+                              stride=local.stride())
 
 
 def _grad(loss: Tensor, params):
