@@ -119,7 +119,11 @@ before any rank is spawned, and then (TF32 off throughout):
    card against CPU (loss within 1e-4, every gradient within 1e-4 of its
    largest entry, deterministic algorithms); ``make_sharded_loss`` equal
    to ``loss_full`` within 1e-5 at (1,1) under NCCL at ``ogb_products``
-   and in gloo worlds (2,1), (1,2), (2,2) sharing the card; int8
+   and in gloo worlds (2,1), (1,2), (2,2) sharing the card; the mesh
+   paths that follow XLA's placement (GraphSAGE's segment sums, the MoE
+   decode's kept expert shards, the uneven-kv decode, the two-tower
+   split backward) on a one-rank NCCL mesh within 1e-5 of the one-card
+   path at the smoke configs; int8
    quantization on the card bit-equal to the CPU's, and the compressed
    all-reductions in a gloo world with a ``pod`` dimension of 2;
 16. holds the analysis tooling against the card (``phase_cells``):
@@ -168,6 +172,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()      # the command's wall, builds included
 BASELINES = ROOT / "benchmarks" / "baselines"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth,
@@ -2492,6 +2497,82 @@ def _grad_err(got, want) -> float:
     return max(_rel(got[k], want[k]) for k in want)
 
 
+MESH_PATH_TOL = 1e-5         # (d) each mesh path against the one-card path
+
+
+def _mesh_paths(dev, counters, seed) -> dict:
+    """Phase 15 (d)'s check of the mesh paths that follow XLA's placement
+    (``launch.mesh_ranks``), at the smoke configs on a one-rank NCCL
+    mesh on the card: GraphSAGE's full-batch loss (the first layer's
+    row sets, the second's hidden columns), the MoE decode step with the
+    experts' ``embed`` shard kept (mixtral, one sequence), the decode
+    step with the kv weights' head_dim and the cache's sequence over
+    ``model`` (granite; the rules forced, as one rank cannot cut a kv
+    head) and the two-tower loss with its (B, B) backward split; each
+    output within ``MESH_PATH_TOL`` of its largest entry (at least 1)
+    of the same step on plain tensors on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh_ranks as M
+    from repro_torch.launch.forcedevices import free_port
+
+    rng = np.random.default_rng(seed)
+    n, e = 24, 70
+    graph = {"x": rng.standard_normal((n, 24)),
+             "edge_src": rng.integers(0, n, e).astype(np.int32),
+             "edge_dst": rng.integers(0, n, e).astype(np.int32),
+             "labels": rng.integers(0, 5, n).astype(np.int32),
+             "mask": rng.random(n) < 0.7}
+    tt = get_arch("two-tower-retrieval").smoke_config_fn()
+    b = 8
+    tt_batch = {"user_id": rng.integers(0, tt.n_users, b).astype(np.int32),
+                "hist_ids": rng.integers(0, tt.n_items, (b, tt.n_user_hist)
+                                         ).astype(np.int32),
+                "hist_mask": rng.random((b, tt.n_user_hist)) < 0.7,
+                "pos_item": rng.integers(0, tt.n_items, b).astype(np.int32),
+                "item_logq": rng.standard_normal(b).astype(np.float32)}
+
+    def prompt(batch):
+        return (rng.integers(0, 500, (batch, 6)).astype(np.int32),
+                rng.integers(0, 500, batch).astype(np.int32))
+
+    checks = {
+        "gnn full-batch loss": lambda: M.gnn_loss_on_mesh(
+            (1, 1), seed, "full", graph, device=dev)[1:],
+        "MoE decode (mixtral)": lambda: M.lm_decode_on_mesh(
+            (1, 1), "mixtral-8x22b", seed, *prompt(1), device=dev),
+        "uneven-kv decode (granite)": lambda: M.lm_decode_on_mesh(
+            (1, 1), "granite-3-8b", seed, *prompt(4), device=dev,
+            force_seq=True),
+        "two-tower loss": lambda: M.twotower_grads_on_mesh(
+            (1, 1), seed, tt_batch, device=dev)[1:]}
+    out = {}
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        for name, run in checks.items():
+            (plain, got), wall, launches = _launches(counters, run)
+            err = max(float(np.abs(np.asarray(g, np.float64)
+                                   - np.asarray(w, np.float64)).max())
+                      / max(float(np.abs(w).max()), 1.0)
+                      for g, w in zip(got, plain, strict=True))
+            need(err <= MESH_PATH_TOL, f"gnn (d) mesh path {name} on the "
+                 f"1-rank NCCL mesh: {err} of the one-card path's largest")
+            out[name] = {"rel_err": err, "wall_s": wall,
+                         "launches": {k: v for k, v in launches.items()
+                                      if v}}
+            say(f"phase gnn (d): {name} on the 1-rank NCCL mesh within "
+                f"{err:.3g} of the one-card path (bound {MESH_PATH_TOL}); "
+                f"{wall:.2f} s; launches {out[name]['launches']}")
+    finally:
+        dist.destroy_process_group()
+    need(out["two-tower loss"]["launches"].get("embedding_bag", 0) > 0,
+         "gnn (d): the two-tower mesh path launched no bag kernel")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_gnn(dev, counters, seed, smi_line, trace_dir=None) -> dict:
     """GraphSAGE (graphsage-reddit) at full width, fp32, seeded weights,
     AdamW at the JAX cell's lr 3e-4 through ``make_train_step`` (PERF.md
@@ -2513,7 +2594,9 @@ def phase_gnn(dev, counters, seed, smi_line, trace_dir=None) -> dict:
         (1,2), (2,2) sharing the card at ``full_graph_sm`` (1433 features
         padded to 1434): loss and every gradient against ``loss_full``'s
         on the card (``launch.gnn_ranks.rank_checks``); at
-        ``full_graph_sm`` both sides under deterministic algorithms;
+        ``full_graph_sm`` both sides under deterministic algorithms; and
+        the mesh paths that follow XLA's placement on a one-rank NCCL
+        mesh against the one-card path (:func:`_mesh_paths`);
     (e) ``quantize_int8`` on the card bit-equal to the CPU's;
         ``compressed_psum_int8`` and ``compressed_crosspod_allreduce`` in
         the gloo world of 2 on a (pod 2, data 1, model 1) mesh against
@@ -2623,6 +2706,7 @@ def phase_gnn(dev, counters, seed, smi_line, trace_dir=None) -> dict:
         f"{sh_s * 1e3:.1f} ms")
     del batch, parts, model_p, model, grads_s, grads_f, loss_s, loss_f, g
     torch.cuda.empty_cache()
+    out["mesh_paths"] = _mesh_paths(dev, counters, seed)
 
     # (b) minibatch_lg: the Reddit-scale graph, sampled
     cfg = spec.config_fn("minibatch_lg")
@@ -3672,9 +3756,9 @@ def _flash_fp32_timing(time_ms, q, k, v) -> dict:
 def _flash_at_cell_b(dev, batch: int, seed: int) -> dict:
     """The bf16 flash kernel at phase 16 (b)'s shape (qwen1.5-0.5b
     ``prefill_32k`` at ``batch``: S 32,768, H 16, D 64, causal) on seeded
-    inputs, beside ``F.scaled_dot_product_attention(is_causal=True)``.
-    Its plain version is not timed here: it would take seconds a call
-    at this length."""
+    inputs, beside ``F.scaled_dot_product_attention(is_causal=True)``
+    and its plain version (one timed call after one warm-up: seconds a
+    call at this length)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -3691,6 +3775,9 @@ def _flash_at_cell_b(dev, batch: int, seed: int) -> dict:
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
     lib_ms = time_ms(sdpa, 3)
+    plain_ms = time_ms(lambda: ops.flash_attention(q, k, v, backend="plain"),
+                       1)
+    torch.cuda.empty_cache()
     ref = sdpa().transpose(1, 2).float()
     diff = (ref - ops.flash_attention(q, k, v).float()).abs()
     err = diff.max().item()
@@ -3710,12 +3797,14 @@ def _flash_at_cell_b(dev, batch: int, seed: int) -> dict:
     say(f"timing flash_attention bf16 at cell (b)'s shape (B {B} S {S} H "
         f"{H} D {D}, causal): kernel {ms:.4f} ms "
         f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), library (SDPA) "
-        f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.3f}, bound "
+        f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.3f}, plain "
+        f"{plain_ms:.1f} ms, bound "
         f"{bound:.4f} ms ({by}: {nbytes} B, {flops} flops); kernel vs SDPA "
         f"{err} ({rel} of its row's largest)")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return {"ms": ms, "library_ms": lib_ms, "bound_ms": bound,
+    return {"ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
             "bound_by": by, "vs_library_err": err, "vs_library_rel": rel,
             "shape": [B, S, H, D],
             "kernel_over_library": ms / lib_ms}
@@ -4349,6 +4438,9 @@ def main() -> int:
     report["phases_s"] = time.perf_counter() - t_start
     say(f"phases took {report['phases_s']:.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in report["phase_s"].items()))
+    report["wall_s"] = time.perf_counter() - T_START
+    say(f"chip_smoke wall so far {report['wall_s']:.1f} s (builds "
+        f"included; the limit is 1200 s): {smi_line}")
     kernels = []
     sharded = paths["sharded"]["launches"]
     thr = report["timing"]["bitmap_intersect_es_thr"]

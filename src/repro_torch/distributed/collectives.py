@@ -59,6 +59,18 @@ def all_gather(t: Tensor, group) -> Tensor:
     return torch.cat(parts).to(t.device)
 
 
+def reduce_scatter(t: Tensor, group) -> Tensor:
+    """The sum of ``t`` over ``group``, this rank's chunk of its rows
+    (dimension 0, cut in group-rank order; a new tensor)."""
+    n = group_size(group)
+    if n == 1:
+        return t.clone()
+    h = t.detach().cpu() if _staged(t) else t.detach()
+    out = h.new_empty((h.shape[0] // n,) + tuple(h.shape[1:]))
+    dist.reduce_scatter_tensor(out, h.contiguous(), group=group)
+    return out.to(t.device)
+
+
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):

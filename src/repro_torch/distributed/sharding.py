@@ -339,14 +339,16 @@ def local_region(fn, in_logical, out_logical, partial=None, reduce="sum"):
     return run
 
 
-def placed_region(fn, in_pls, out_pls, mesh: DeviceMesh):
+def placed_region(fn, in_pls, out_pls, mesh: DeviceMesh, grad_pls=None):
     """``fn`` run on each rank's shards, the inputs redistributed to the
     placements ``in_pls`` and the outputs wrapped as ``out_pls`` (the
     body of :func:`local_region`, for a caller that derives placements
-    from its inputs' own); gradients placed by
+    from its inputs' own); gradients placed by ``grad_pls``, by default
     :func:`grad_placements`."""
     return local_map(fn, out_placements=out_pls, in_placements=in_pls,
-                     in_grad_placements=grad_placements(in_pls, out_pls),
+                     in_grad_placements=(grad_pls if grad_pls is not None
+                                         else grad_placements(in_pls,
+                                                              out_pls)),
                      device_mesh=mesh, redistribute_inputs=True)
 
 

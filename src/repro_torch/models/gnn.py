@@ -31,14 +31,18 @@ its loss and every rank's gradients are those of :func:`loss_full`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import constrain, local_region
+from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                              local_region, logical_spec,
+                                              placed_region, placements)
 from repro_torch.models.layers import _normal
 from repro_torch.models.recsys import ParamTree
 
@@ -148,13 +152,137 @@ class _GatherSum(torch.autograd.Function):
 _EDGES = ("edges",)
 
 
+def _row_set(ids: Tensor, n_block: int, n_sub: int, m: int
+              ) -> Tuple[Tensor, Tensor]:
+    """Where node ``ids`` lie in row set ``m``: sub-block ``m`` (of
+    ``n_sub`` rows) of every node block of ``n_block`` rows, the sets'
+    blocks in order; ``(held, position)``, the position of a node the
+    set does not hold being that of another row."""
+    w = ids % n_block
+    return w // n_sub == m, (ids // n_block) * n_sub + w % n_sub
+
+
+def _over(t: Tensor, groups, op) -> Tensor:
+    """``op`` (a ``distributed.collectives`` function) over each process
+    group of ``groups`` in turn."""
+    for g in groups:
+        t = op(t, g)
+    return t
+
+
+class _RowSetGatherSum(torch.autograd.Function):
+    """XLA's partition of the JAX package's gather and ``segment_sum``
+    when every rank of a node block holds its rows whole (the first
+    layer's features), on a rank whose edges vary over the ``rows``
+    groups (the node axes) and not over the ``cols`` groups (the model
+    axis): the node rows are laid out again over ``cols`` (row set
+    ``m``: sub-block ``m`` of every node block, gathered over ``rows``),
+    each rank gathers its edges' sources from its row set (zeros for the
+    others) and the messages are summed over ``cols``; each rank then
+    scatters them into its row set's destinations, the sums are
+    reduce-scattered over ``rows`` to sub-block ``(r, m)`` and gathered
+    over ``cols`` into the node block.  No rank holds more than about
+    ``N / |cols|`` node rows.  Sub-blocks are ``ceil(block / |cols|)``
+    rows, the last padded.  The backward is the same pair the other way
+    round."""
+
+    @staticmethod
+    def forward(ctx, h: Tensor, src: Tensor, dst: Tensor, rows, cols,
+                m: int, n_cols: int) -> Tensor:
+        ctx.rows, ctx.cols, ctx.m, ctx.n_cols = rows, cols, m, n_cols
+        ctx.save_for_backward(src, dst)
+        return _RowSetGatherSum._pair(h, src, dst, rows, cols, m, n_cols)
+
+    @staticmethod
+    def _pair(block: Tensor, take: Tensor, put: Tensor, rows, cols, m: int,
+              n_cols: int) -> Tensor:
+        """``out[v] = sum_{e: put_e = v} t[take_e]`` for the node rows
+        ``v`` of this rank's block, ``t`` given as every rank's
+        ``block``."""
+        n_block = block.shape[0]
+        n_sub = -(-n_block // n_cols)
+        sub = block[m * n_sub:(m + 1) * n_sub]
+        if sub.shape[0] < n_sub:
+            sub = torch.cat([sub, sub.new_zeros(
+                (n_sub - sub.shape[0],) + tuple(sub.shape[1:]))])
+        t = _over(sub, reversed(rows), C.all_gather)
+        held, pos = _row_set(take, n_block, n_sub, m)
+        msgs = torch.where(held[:, None], t.index_select(0, pos),
+                           t.new_zeros(()))
+        buf = torch.zeros_like(t)
+        del t
+        msgs = _over(msgs, cols, C.all_reduce)
+        held, pos = _row_set(put, n_block, n_sub, m)
+        buf.index_add_(0, pos, torch.where(held[:, None], msgs,
+                                           msgs.new_zeros(())))
+        del msgs
+        out = _over(_over(buf, rows, C.reduce_scatter), reversed(cols),
+                    C.all_gather)
+        return out[:n_block]
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        src, dst = ctx.saved_tensors
+        return (_RowSetGatherSum._pair(g, dst, src, ctx.rows, ctx.cols,
+                                       ctx.m, ctx.n_cols),
+                None, None, None, None, None, None)
+
+
+def _gather_sum(h: Tensor, edge_src: Tensor, edge_dst: Tensor,
+                n: int) -> Tensor:
+    """:class:`_GatherSum`; on a mesh, per rank as XLA partitions the
+    JAX package's gather and ``segment_sum`` of edges sharded over the
+    node axes.  Where ``h``'s columns are sharded over the other axes
+    (the hidden axis over ``model``), every rank gathers the node rows
+    of its columns and scatters its edge shard's messages into an
+    ``(N, columns of its own)`` partial sum over the edge axes, the
+    backward the same pair the other way round (its gradient of ``h`` a
+    partial sum); where they are whole (the features), the rows go over
+    the other axes instead (:class:`_RowSetGatherSum`, the sums of
+    sub-block ``(r, m)``).  No rank holds a whole ``(N, H)`` or ``(N,
+    F)`` array."""
+    def fn(h_, s_, d_):
+        return _GatherSum.apply(h_, s_, d_, n)
+    mesh = current_mesh()
+    if mesh is None or not isinstance(h, DTensor):
+        return fn(h, edge_src, edge_dst)
+    edges = placements(logical_spec(_EDGES, mesh), mesh)
+    r_dims = [i for i, e in enumerate(edges) if isinstance(e, Shard)]
+    m_dims = [i for i in range(mesh.ndim) if i not in r_dims]
+    if r_dims and m_dims and h.shape[0] % math.prod(
+            mesh.size(i) for i in r_dims) == 0 and not any(
+            isinstance(h.placements[i], Shard) for i in m_dims):
+        m = 0
+        for i in m_dims:
+            m = m * mesh.size(i) + mesh.get_local_rank(i)
+        rows = tuple(mesh.get_group(i) for i in r_dims)
+        cols = tuple(mesh.get_group(i) for i in m_dims)
+        n_cols = math.prod(mesh.size(i) for i in m_dims)
+        h_pls = tuple(e if isinstance(e, Shard) else Replicate()
+                      for e in edges)
+        return placed_region(
+            lambda h_, s_, d_: _RowSetGatherSum.apply(
+                h_, s_, d_, rows, cols, m, n_cols),
+            (h_pls, edges, edges), (h_pls,), mesh,
+            grad_pls=(h_pls, edges, edges))(h, edge_src, edge_dst)
+    cols = tuple(p if isinstance(p, Shard) and p.dim == 1
+                 and not isinstance(e, Shard) else Replicate()
+                 for p, e in zip(h.placements, edges, strict=True))
+    out = tuple(Partial() if isinstance(e, Shard) else c
+                for c, e in zip(cols, edges, strict=True))
+    agg = placed_region(fn, (cols, edges, edges), (out,), mesh)(
+        h, edge_src, edge_dst)
+    # reduced into node rows before the layer's matmul reads it, so no
+    # rank's matmul makes an (N, H) partial product
+    return agg.redistribute(mesh, tuple(
+        e if isinstance(e, Shard) else c
+        for c, e in zip(cols, edges, strict=True)))
+
+
 def _segment_mean(h: Tensor, edge_src: Tensor, edge_dst: Tensor,
                   inv_deg: Tensor, n: int) -> Tensor:
     """mean over in-edges: ``sum_{e: dst=v} h[src_e] * inv_deg[v]``."""
-    agg = local_region(lambda h_, s_, d_: _GatherSum.apply(h_, s_, d_, n),
-                       ((None, None), _EDGES, _EDGES), (None, None),
-                       partial="edges")(h, edge_src, edge_dst)
-    return agg * inv_deg[:, None]
+    return _gather_sum(h, edge_src, edge_dst, n) * inv_deg[:, None]
 
 
 def _degree(edge_dst: Tensor, n: int) -> Tensor:
@@ -195,6 +323,19 @@ def forward_full(params: ParamTree, cfg: SAGEConfig, x: Tensor,
 # ---------------------------------------------------------------------------
 
 def _mean_agg(xs: Tensor, mask: Tensor) -> Tensor:   # (..., k, F), (..., k)
+    """The masked mean over the samples; on a mesh, per rank with the
+    blocks placed as given (the nodes over the batch axes, the columns
+    over ``model`` where they are), so the backward's cotangent of a
+    ``(B, f1, H)`` block is this rank's rows and columns, never a
+    partial sum over ``model``."""
+    if isinstance(xs, DTensor) and current_mesh() is not None:
+        x_pls = xs.placements
+        out = tuple(Shard(p.dim - 1) if isinstance(p, Shard)
+                    and p.dim == xs.dim() - 1 else p for p in x_pls)
+        m_pls = tuple(p if isinstance(p, Shard) and p.dim < xs.dim() - 1
+                      else Replicate() for p in x_pls)
+        return placed_region(_mean_agg, (x_pls, m_pls), (out,),
+                             xs.device_mesh)(xs, mask)
     s = (xs * mask[..., None]).sum(-2)
     d = mask.sum(-1, keepdim=True).clamp_min(1.0)
     return s / d

@@ -42,17 +42,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard)
 
 from repro_torch.distributed.sharding import (axis_size, axis_start,
                                               constrain, current_mesh,
                                               local_index, local_region,
-                                              placed_region, shard_start)
+                                              logical_spec, placed_region,
+                                              placements, shard_start)
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -313,24 +316,90 @@ def gqa_init(d_model: int, n_heads: int, n_kv_heads: int, d_head: int, *,
 
 def _proj(x: Tensor, w: Tensor) -> Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as one 2-D matmul.  On a mesh
-    whose model axis would cut a head (8 kv heads over 16), per rank with
-    the heads whole: DTensor cannot unflatten an uneven split, where
-    GSPMD pads."""
+    whose model axis would cut a head (8 kv heads over 16; the weight's
+    head_dim sharded, as the decode rules then shard it), per rank
+    (DTensor cannot unflatten an uneven split, where GSPMD pads), the
+    weight kept as placed wherever the tokens are not split: a
+    ``head_dim`` shard gives the rank's columns of every head, an
+    ``embed`` shard (:func:`_for_use`) a partial product of the rank's
+    slice of ``x``, and the heads are gathered whole.  So a decode step
+    moves its token's activations, not the weights."""
     d, h, k = w.shape
-    if isinstance(w, DTensor) and h % axis_size("heads"):
-        return local_region(_proj, (("batch", None, None), (None,) * 3),
-                            ("batch", None, None, None))(x, w)
+    if isinstance(w, DTensor) and (h % axis_size("heads") or any(
+            isinstance(p, Shard) and p.dim == 2 for p in w.placements)):
+        x_pls, w_pls, out = [], [], []
+        x_in = x.placements if isinstance(x, DTensor) else (
+            (Replicate(),) * w.device_mesh.ndim)
+        for px, pw in zip(x_in, w.placements, strict=True):
+            if not _splits_tokens(px, x) and isinstance(pw, Shard) \
+                    and pw.dim == 0:
+                x_pls.append(Shard(2))
+                w_pls.append(pw)
+                out.append(Partial())
+            elif not _splits_tokens(px, x) and isinstance(pw, Shard) \
+                    and pw.dim == 2:
+                x_pls.append(Replicate())
+                w_pls.append(pw)
+                out.append(Shard(3))
+            else:
+                x_pls.append(px if isinstance(px, Shard) and px.dim == 0
+                             else Replicate())
+                w_pls.append(Replicate())
+                out.append(x_pls[-1])
+        return placed_region(_proj, (tuple(x_pls), tuple(w_pls)),
+                             (tuple(out),), w.device_mesh)(x, w)
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _for_use(w: Tensor, logical, x: Tensor, k_dims: Tuple[int, ...]
+             ) -> Tensor:
+    """``w`` constrained to ``logical`` for its use in a product with
+    ``x`` over ``w``'s dimensions ``k_dims``.  On a mesh whose rules
+    shard ``embed`` over the data axes (FSDP) that gathers the weight
+    along it, as XLA gathers it for a prefill or a train step, so
+    DTensor reshards no activation.  Along a mesh dimension where the
+    tokens are not split (a decode step of one sequence) and each rank's
+    share of the product moves fewer elements than its weight shard
+    (rows of ``x`` fewer than the rank's contraction length), the shard
+    stays: the product is then a partial sum (``embed`` contracted) or
+    sharded (``embed`` out), reduced or gathered where it is next read,
+    as XLA keeps it.  The identity on one card."""
+    mesh = current_mesh()
+    if mesh is None or not isinstance(w, DTensor):
+        return constrain(w, logical)
+    return w.redistribute(mesh, _use_placements(w, logical, x, k_dims))
+
+
+def _use_placements(w: DTensor, logical, x: Tensor, k_dims: Tuple[int, ...]
+                    ) -> Tuple[Placement, ...]:
+    """The placements :func:`_for_use` gives ``w`` on the active mesh."""
+    mesh = current_mesh()
+    target = placements(logical_spec(logical, mesh), mesh)
+    k_loc = math.prod(w._local_tensor.shape[d] for d in k_dims)
+    x_pls = x.placements if isinstance(x, DTensor) else (
+        (Replicate(),) * mesh.ndim)
+    xl = x._local_tensor if isinstance(x, DTensor) else x
+    rows = xl.numel() // max(xl.shape[-1], 1)
+    return tuple(
+        p if (isinstance(p, Shard) and not isinstance(t, Shard)
+              and not _splits_tokens(px, x) and rows < k_loc) else t
+        for p, t, px in zip(w.placements, target, x_pls, strict=True))
+
+
+def _splits_tokens(p: Placement, x: Tensor) -> bool:
+    """Whether placement ``p`` of activations ``x`` (..., features)
+    splits their token rows (a shard of any dimension but the last)."""
+    return isinstance(p, Shard) and p.dim < x.dim() - 1
 
 
 def _qkv(p: GQA, x: Tensor, cd: torch.dtype) -> Tuple[Tensor, Tensor, Tensor]:
     xc = x.to(cd)
-    # On a mesh whose rules shard ``embed`` over the data axes (FSDP) the
-    # weights are gathered along it for their use, as XLA gathers them,
-    # so DTensor reshards no activation; the identity on one card.
-    q = _proj(xc, constrain(p.wq.to(cd), (None, "heads", "head_dim")))
-    k = _proj(xc, constrain(p.wk.to(cd), (None, "kv_heads", "head_dim")))
-    v = _proj(xc, constrain(p.wv.to(cd), (None, "kv_heads", "head_dim")))
+    q = _proj(xc, _for_use(p.wq.to(cd), (None, "heads", "head_dim"), xc,
+                           (0,)))
+    k = _proj(xc, _for_use(p.wk.to(cd), (None, "kv_heads", "head_dim"), xc,
+                           (0,)))
+    v = _proj(xc, _for_use(p.wv.to(cd), (None, "kv_heads", "head_dim"), xc,
+                           (0,)))
     if p.qkv_bias:
         q = q + p.bq.to(cd)
         k = k + p.bk.to(cd)
@@ -341,8 +410,9 @@ def _qkv(p: GQA, x: Tensor, cd: torch.dtype) -> Tuple[Tensor, Tensor, Tensor]:
 def _out(p: GQA, o: Tensor, cd: torch.dtype) -> Tensor:
     """``einsum("bshk,hkd->bsd", o, wo)`` as one 2-D matmul."""
     h, k, d = p.wo.shape
-    wo = constrain(p.wo.to(cd), ("heads", "head_dim", None))   # FSDP: _qkv
-    return o.to(cd).flatten(-2) @ wo.reshape(h * k, d)
+    of = o.to(cd).flatten(-2)
+    wo = _for_use(p.wo.to(cd), ("heads", "head_dim", None), of, (0, 1))
+    return of @ wo.reshape(h * k, d)
 
 
 def chunked_attention(q: Tensor,            # (B, Sq, H, Dh)
@@ -507,8 +577,12 @@ def gqa_decode(p: GQA, x: Tensor, cache: Dict[str, Tensor], *,
         return _seq_sharded_decode(p, q, k_new, v_new, cache, slot, valid,
                                    cd)
     axes = head_axes(q.shape[2], k_new.shape[2])
-    row = (axes[0],) + axes[2:]
-    put = local_region(_batched_set, (axes, row, ("batch",)), axes)
+    # the cache is written as the rules place it (kv heads whole where an
+    # arch's rules say so), so the write lands in its own shards, not in
+    # a redistributed copy
+    c_axes = ("batch", None, "kv_heads", None)
+    row = (c_axes[0],) + c_axes[2:]
+    put = local_region(_batched_set, (c_axes, row, ("batch",)), c_axes)
     k_cache = put(cache["k"], k_new[:, 0], slot)
     v_cache = put(cache["v"], v_new[:, 0], slot)
     o = local_region(_direct_decode_attention,
@@ -787,12 +861,12 @@ def swiglu(p: SwiGLU, x: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
 def _swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
             cd: torch.dtype) -> Tensor:
     xc = x.to(cd)
-    # FSDP-sharded weights gathered along ``embed`` for their use (_qkv)
-    g = xc @ constrain(w_gate.to(cd), (None, "ff"))
-    u = xc @ constrain(w_up.to(cd), (None, "ff"))
+    # FSDP-sharded weights for their use (_for_use)
+    g = xc @ _for_use(w_gate.to(cd), (None, "ff"), xc, (0,))
+    u = xc @ _for_use(w_up.to(cd), (None, "ff"), xc, (0,))
     h = torch.nn.functional.silu(g.to(torch.float32)).to(cd) * u
     h = constrain(h, ("batch",) + (None,) * (h.dim() - 2) + ("act_ff",))
-    return h @ constrain(w_down.to(cd), ("ff", None))
+    return h @ _for_use(w_down.to(cd), ("ff", None), h, (0,))
 
 
 
@@ -921,9 +995,26 @@ def _moe_experts(x: Tensor, router: Tensor, w_gate: Tensor, w_up: Tensor,
     unless the weights are a shard): ``(y (G, Tg, D) in cd, probs (G, Tg,
     E), ids (G, Tg, K))``.  Copies routed to other experts add nothing,
     so over expert shards ``y`` is a partial sum."""
+    hb, route, probs, ids = _moe_dispatch(x, router, dims, cd, G, e0,
+                                          w_gate.shape[0])
+    g = torch.bmm(hb, w_gate.to(cd))
+    u = torch.bmm(hb, w_up.to(cd))
+    del hb
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(cd) * u
+    del g, u
+    yb = torch.bmm(h, w_down.to(cd))                             # (E G C, D)
+    del h
+    return _moe_combine(yb, route, x.shape[0] * x.shape[1], cd), probs, ids
+
+
+def _moe_dispatch(x: Tensor, router: Tensor, dims: MoEDims, cd: torch.dtype,
+                  G: int, e0: int, E_loc: int):
+    """Route ``G`` groups of ``x`` (B, S, D) and lay the copies of experts
+    ``[e0, e0 + E_loc)`` out expert-major: ``(hb (E_loc, G C, D), route,
+    probs, ids)``, ``route`` the ``(G, Tg K)`` slot, kept flag, gate and
+    token of each copy (:func:`_moe_combine` takes them)."""
     B, S, D = x.shape
     E, K = dims.n_experts, dims.top_k
-    E_loc = w_gate.shape[0]
     T = B * S
     Tg = T // G
     dev = x.device
@@ -947,26 +1038,29 @@ def _moe_experts(x: Tensor, router: Tensor, w_gate: Tensor, w_up: Tensor,
     grp = torch.arange(G, device=dev)[:, None]
     trash = E_loc * G * C
     slot = torch.where(keep, se * (G * C) + grp * C + pos, trash)  # (G, n)
-    tok = (grp * Tg + st).reshape(-1)                            # (G n,)
-    xs = xg.reshape(T, D).index_select(0, tok).to(cd)
+    tok = grp * Tg + st                                          # (G, n)
+    xs = xg.reshape(T, D).index_select(0, tok.reshape(-1)).to(cd)
     buf = torch.zeros((trash + 1, D), dtype=cd, device=dev)
     buf.index_copy_(0, slot.reshape(-1), xs)
     del xs
-    hb = buf[:trash].view(E_loc, G * C, D)
+    return buf[:trash].view(E_loc, G * C, D), (slot, keep, sg, tok), probs, \
+        ids
 
-    g = torch.bmm(hb, w_gate.to(cd))
-    u = torch.bmm(hb, w_up.to(cd))
-    del buf, hb
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(cd) * u
-    del g, u
-    yb = torch.bmm(h, w_down.to(cd)).view(trash, D)              # (E G C, D)
-    del h
 
+def _moe_combine(yb: Tensor, route, T: int, cd: torch.dtype) -> Tensor:
+    """Each kept copy's expert output ``yb`` (E_loc, G C, D') weighed by
+    its gate and added to its token of the ``T``: ``(G, T / G, D')`` in
+    cd."""
+    slot, keep, sg, tok = route
+    G = slot.shape[0]
+    trash = yb.shape[0] * yb.shape[1]
+    yb = yb.view(trash, yb.shape[-1])
     y_cp = yb.index_select(0, torch.clamp(slot, max=trash - 1).reshape(-1))
     y_cp = (y_cp * keep.reshape(-1, 1).to(cd)
             * sg.reshape(-1, 1).to(cd))
-    y = torch.zeros((T, D), dtype=cd, device=dev).index_add_(0, tok, y_cp)
-    return y.view(G, Tg, D), probs, ids
+    y = torch.zeros((T, yb.shape[-1]), dtype=cd, device=yb.device
+                    ).index_add_(0, tok.reshape(-1), y_cp)
+    return y.view(G, T // G, yb.shape[-1])
 
 
 def _moe_sharded(p: MoE, x: Tensor, dims: MoEDims, cd: torch.dtype,
@@ -981,6 +1075,12 @@ def _moe_sharded(p: MoE, x: Tensor, dims: MoEDims, cd: torch.dtype,
     E, K = dims.n_experts, dims.top_k
     e0 = axis_start("experts", E)
     g_loc = G // axis_size("batch")
+    w_in = _use_placements(p.w_gate, ("experts", None, "expert_ff"), x,
+                           (1,))
+    if p.shared is None and any(isinstance(q, Shard) and q.dim == 1
+                                for q in w_in) and not any(
+            _splits_tokens(q, x) for q in x.placements):
+        return _moe_partials(p, x, dims, cd, G)
     shared = () if p.shared is None else (
         p.shared.w_gate, p.shared.w_up, p.shared.w_down)
 
@@ -1005,6 +1105,59 @@ def _moe_sharded(p: MoE, x: Tensor, dims: MoEDims, cd: torch.dtype,
         (("batch", None, None), (None,), (None,)),
         partial=(("experts", "expert_ff", "ff"), "batch", "batch"))(
             x, p.router, p.w_gate, p.w_up, p.w_down, *shared)
+    T = B * S
+    aux = E * torch.sum((me_sum / T) * (counts / (T * K)))
+    return y, aux
+
+
+def _moe_partials(p: MoE, x: Tensor, dims: MoEDims, cd: torch.dtype,
+                  G: int) -> Tuple[Tensor, Tensor]:
+    """:func:`moe_apply` without shared experts on a mesh for tokens that
+    no mesh axis splits (a decode step of one sequence) when
+    :func:`_for_use` keeps the experts' ``embed`` shard (FSDP): the
+    weights stay as placed, as XLA keeps them.  Each rank routes every token, multiplies its ``embed`` slice
+    of the dispatched copies by its shard of the up projections (partial
+    sums over the ``embed`` axes, reduced before the SiLU: one token's
+    ``(E, C, d_ff)`` products, not the weights, cross the links), and
+    its hidden slice by its shard of the down projection, which leaves
+    the rank's ``embed`` columns of the output, a partial sum over the
+    expert and hidden axes."""
+    B, S, D = x.shape
+    E, K = dims.n_experts, dims.top_k
+    mesh = current_mesh()
+    e0 = axis_start("experts", E)
+    c0 = shard_start(p.w_gate.shape, p.w_gate.placements, mesh, dim=1)
+    rep = (Replicate(),) * mesh.ndim
+
+    def up(x_, router, w_gate, w_up):
+        hb, route, probs, ids = _moe_dispatch(x_, router, dims, cd, G, e0,
+                                              w_gate.shape[0])
+        hb = hb[..., c0:c0 + w_gate.shape[1]]
+        counts = torch.zeros((E,), dtype=torch.float32,
+                             device=x_.device).index_add_(
+            0, ids.reshape(-1), torch.ones((ids.numel(),),
+                                           dtype=torch.float32,
+                                           device=x_.device))
+        return (torch.bmm(hb, w_gate.to(cd)), torch.bmm(hb, w_up.to(cd)),
+                *route, probs.sum(dim=(0, 1)), counts)
+
+    g_pls = tuple(Partial() if isinstance(q, Shard) and q.dim == 1 else q
+                  for q in p.w_gate.placements)
+    g, u, *route, me_sum, counts = placed_region(
+        up, (rep, rep, p.w_gate.placements, p.w_up.placements),
+        (g_pls, g_pls) + (rep,) * 6, mesh)(x, p.router, p.w_gate, p.w_up)
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(cd) * u
+    h_pls = tuple(Replicate() if q.is_partial() else q for q in g_pls)
+
+    def down(h_, w_down, *route_):
+        y = _moe_combine(torch.bmm(h_, w_down.to(cd)), route_, B * S, cd)
+        return y.reshape(B, S, y.shape[-1]).to(x.dtype)
+
+    y_pls = tuple(Shard(2) if isinstance(q, Shard) and q.dim == 2 else
+                  Partial() if isinstance(q, Shard) else q
+                  for q in p.w_down.placements)
+    y = placed_region(down, (h_pls, p.w_down.placements) + (rep,) * 4,
+                      (y_pls,), mesh)(h, p.w_down, *route)
     T = B * S
     aux = E * torch.sum((me_sum / T) * (counts / (T * K)))
     return y, aux

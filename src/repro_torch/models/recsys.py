@@ -23,13 +23,15 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.distributed.sharding import (axis_size, axis_start,
                                               constrain, current_mesh,
-                                              local_index, local_region)
+                                              local_index, local_region,
+                                              logical_spec, placed_region,
+                                              placements)
 from repro_torch.models.layers import DTYPES, _normal, _param, embed_lookup
 
 Tensor = torch.Tensor
@@ -540,13 +542,62 @@ def twotower_loss(params: ParamTree, cfg: TwoTowerConfig, user_id: Tensor,
     # items are gathered, so the (B, B) logits stay sharded by rows and
     # are never a partial sum
     it = constrain(it, (None, None))
-    logits = (u @ it.T) / cfg.temperature                     # (B, B)
+    logits = _in_batch_logits(u, it) / cfg.temperature        # (B, B)
     logits = logits.to(torch.float32) - item_logq[None, :]
     labels = torch.arange(u.shape[0], device=u.device)
     logp = torch.log_softmax(logits, dim=-1)
     loss = -_row_entries(logp, labels).mean()
     acc = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
     return loss, {"ce": loss.detach(), "in_batch_acc": acc}
+
+
+class _SplitBackwardLogits(torch.autograd.Function):
+    """``u @ it.T`` for this rank's rows ``u`` (B_r, D) and every item
+    ``it`` (B, D), whose backward takes only column block ``m`` of ``n``
+    of the cotangent (``torch.chunk`` cuts): ``g[:, blk] @ it[blk]``
+    and ``g[:, blk].T @ u`` into rows ``blk``, both partial sums over
+    the ranks that hold the same rows."""
+
+    @staticmethod
+    def forward(ctx, u: Tensor, it: Tensor, m: int, n: int) -> Tensor:
+        ctx.save_for_backward(u, it)
+        ctx.m, ctx.n = m, n
+        return u @ it.T
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        u, it = ctx.saved_tensors
+        step = -(-it.shape[0] // ctx.n)
+        lo = min(ctx.m * step, it.shape[0])
+        hi = min(lo + step, it.shape[0])
+        gb = g[:, lo:hi]
+        git = torch.zeros_like(it)
+        git[lo:hi] = gb.T @ u
+        return gb @ it[lo:hi], git, None, None
+
+
+def _in_batch_logits(u: Tensor, it: Tensor) -> Tensor:
+    """``u @ it.T``, the (B, B) in-batch logits.  On a mesh the rows
+    follow the batch and every rank holds all the items (``it``
+    gathered), so the forward is repeated over the axes that do not split
+    the batch (``model``); the backward is split over them instead, as
+    XLA splits it: each rank contracts one column block of the
+    cotangent, its gradients partial sums over those axes."""
+    mesh = current_mesh()
+    if mesh is None or not isinstance(u, DTensor):
+        return u @ it.T
+    rows = placements(logical_spec(("batch", None), mesh), mesh)
+    free = [i for i, q in enumerate(rows) if not isinstance(q, Shard)
+            and mesh.size(i) > 1]
+    m, n = 0, 1
+    for i in free:
+        m, n = m * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
+    rep = (Replicate(),) * mesh.ndim
+    u_grad = tuple(Partial() if i in free else q for i, q in enumerate(rows))
+    return placed_region(
+        lambda u_, it_: _SplitBackwardLogits.apply(u_, it_, m, n),
+        (rows, rep), (rows,), mesh,
+        grad_pls=(u_grad, (Partial(),) * mesh.ndim))(u, it)
 
 
 def _row_entries(x: Tensor, cols: Tensor) -> Tensor:

@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.core.distributed import (make_mining_round,
                                           make_mining_round_v2)
+from repro_torch.launch import mesh_ranks
 from repro_torch.launch.mesh import make_host_mesh
 
 
@@ -267,3 +268,18 @@ def jobs(rank, world, todo):
         except Exception:
             out[name] = traceback.format_exc()
     return out
+
+
+
+def gnn_loss_on_mesh(rank, world, shape, seed, kind, batch):
+    return mesh_ranks.gnn_loss_on_mesh(shape, seed, kind, batch)
+
+
+def lm_decode_on_mesh(rank, world, shape, arch, seed, prompt, token,
+                      overrides=None):
+    return mesh_ranks.lm_decode_on_mesh(shape, arch, seed, prompt, token,
+                                        overrides)
+
+
+def twotower_grads_on_mesh(rank, world, shape, seed, batch):
+    return mesh_ranks.twotower_grads_on_mesh(shape, seed, batch)
