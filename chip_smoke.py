@@ -19,8 +19,8 @@ before any rank is spawned, and then (TF32 off throughout):
    fused), the N-list merge and Z-merge scatter (lengths 0,
    1, every bucket edge and 32769; whole pool slabs equal) and the
    compaction gather (rows, suffix tables, (cap, 3) codes); flash
-   attention within 2e-5 (fp32, the scalar kernel) and 3e-2 (bf16, the
-   tensor-core kernel) on the sweep of ``tests/test_kernels.py`` plus
+   attention within 2e-5 (fp32, the 3xTF32 mma.sync kernel) and 3e-2
+   (bf16, the wgmma kernel) on the sweep of ``tests/test_kernels.py`` plus
    ragged lengths and Sq != Skv, and the bf16 edges again (head dims
    16/64/128 and 6, Dv != D, one kv head, no mask, one token, S 1024),
    then in both types sliding windows of 1, 100, 127, 128, 129, 4096 and
@@ -49,7 +49,8 @@ before any rank is spawned, and then (TF32 off throughout):
    of 2048 tokens, 32 new tokens through ``serve_greedy``; one flash
    launch per layer), holds layer 0's attention at that shape against
    the plain version, and runs the same widths in fp32 through the
-   kernel and the plain path (equal tokens, logits within 1e-3);
+   kernel and the plain path (equal tokens, logits within 1e-3; one fp32
+   flash launch a layer);
 8. runs full-size two-tower retrieval (5M x 256 and 2M x 256 tables):
    ``retrieval_scores`` for 1 user over 1,000,000 candidates (top-100 ids
    equal to the plain path's, scores recounted) and ``user_embed`` for
@@ -60,7 +61,9 @@ before any rank is spawned, and then (TF32 off throughout):
    then times every kernel with CUDA events at its path's shapes, beside
    its bound, its plain version and, where one PyTorch call computes the
    same function, that call (with the kernel / library
-   ratio, and flash attention's TFLOP/s and the EmbeddingBag's GB/s),
+   ratio, and flash attention's TFLOP/s and the EmbeddingBag's GB/s;
+   the fp32 flash kernel at qwen's shape, with the fp32 non-tensor bound
+   beside its 3xTF32 one),
    and the scan with a per-pair threshold at the (1,1) sharded shape;
 10. drives the sharded miner (``DistributedMiner`` on a ``(block, cls)``
    mesh): (1,1) under NCCL in this process at kosarak-paper @ 1.0 (ES on
@@ -93,8 +96,10 @@ before any rank is spawned, and then (TF32 off throughout):
    each with one flash launch a layer, the decode loop under the purity
    guard, layer 0's attention against the plain version, and the same
    widths in fp32 at 2 layers through the kernel and the plain path
-   (equal tokens, logits within 1e-3); then times flash attention at both
-   prefill shapes beside its bound, its plain version and SDPA;
+   (equal tokens, logits within 1e-3; one fp32 flash launch a layer);
+   then times flash attention at both bf16 prefill shapes and, in fp32,
+   at both fp32 check shapes (layer 0 of the 2-layer models: 1 x 5000
+   and 2 x 512) beside its bounds, its plain version and SDPA;
 13. trains the MoE archs (``phase_train_moe``, PERF.md §4's cells
    (g)-(i)): mixtral-8x22b at full width, 1 of 56 layers, fp32, through
    ``train_lm`` (AdamW, 1 x 5120, past the 4096 window, 3 steps);
@@ -182,6 +187,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # Dense bf16 tensor-core rate: the peak for attention's bf16 products.
 PEAK_BF16_FLOPS = 989e12
+# Dense TF32 tensor-core rate: fp32 attention's 3xTF32 route does three
+# TF32 products for each fp32 one.
+PEAK_TF32_FLOPS = 495e12
 
 SMOKE_KEYS = ("word_ops", "word_ops_full", "device_calls", "peak_rows",
               "scatter_words", "compactions", "screened_out",
@@ -294,7 +302,7 @@ def phase_kernels(dev, rng) -> dict:
 # B, Sq, Skv, H, KH, D, Dv, causal, dtype, tolerance: the sweep of
 # tests/test_kernels.py:520-524 (its tolerances: fp32 2e-5, bf16 3e-2),
 # then ragged lengths, Sq != Skv both ways, and bf16 at a ragged length.
-# fp32 runs on the scalar kernel and bf16 on the tensor-core kernel, so the
+# fp32 runs on the 3xTF32 kernel and bf16 on the wgmma kernel, so the
 # bf16 rows repeat the edges for the second kernel: head dims 16/64/128,
 # Dv != D, GQA with one kv head, no mask, Sq != Skv both ways, one token,
 # a ragged 65, the serve head shape at S 1024, and a head dim that TMA
@@ -374,7 +382,8 @@ def _check_flash(dev, close) -> None:
     for case, (got, want) in zip(_flash_cases(), _flash_sweep(dev),
                                  strict=True):
         B, Sq, Skv, H, KH, D, Dv, causal, w, dtype, tol = case
-        close("flash_attention", got, want, tol,
+        close("flash_attention" if dtype == "bfloat16"
+              else "flash_attention_fp32", got, want, tol,
               f"B={B} Sq={Sq} Skv={Skv} H={H} KH={KH} D={D} Dv={Dv} "
               f"causal={causal} window={w} {dtype}")
 
@@ -1299,8 +1308,12 @@ def phase_serve(dev, counters, seed) -> dict:
         # fp32 at the same widths: the kernel path against the plain path.
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         model32 = T.init_params(cfg32, seed=seed, device=dev)
-        logit_k, cache = T.prefill(model32, cfg32, tokens)
+        (logit_k, cache), _, launches32 = _launches(
+            counters, lambda: T.prefill(model32, cfg32, tokens))
         del cache
+        need(launches32["flash_attention"] == cfg.n_layers,
+             f"serve fp32: prefill launched flash_attention "
+             f"{launches32['flash_attention']} times, not {cfg.n_layers}")
         logit_p, cache = T.prefill(model32, cfg32, tokens, backend="plain")
         del cache
         need(bool(torch.isfinite(logit_k).all().item()),
@@ -1325,16 +1338,19 @@ def phase_serve(dev, counters, seed) -> dict:
         f"{launches['flash_attention']}; layer-0 attention err {attn_err}; "
         f"bf16 plain path agrees on {rows_agree}/{B} rows ({tok_agree}/"
         f"{gen.size} tokens); fp32 logits err {logit_err}, fp32 tokens "
-        f"equal; fp32 prefill {t32['prefill_s'] * 1e3:.3f} ms")
+        f"equal; fp32 prefill {t32['prefill_s'] * 1e3:.3f} ms, flash "
+        f"launches {launches32['flash_attention']}")
     return {"cfg": cfg, "model": model, "prompts": prompts,
-            "qkv": (q, k, v), "launches": launches, "report": {
+            "qkv": (q, k, v), "launches": launches,
+            "launches_fp32": launches32, "report": {
                 "arch": cfg.name, "params": n_params, "batch": B,
                 "prompt": S, "new_tokens": new, "init_s": init_s,
                 "wall_s": wall, **timings, "peak_alloc_gb": peak_gb,
                 "launches": launches, "layer0_attn_err": attn_err,
                 "bf16_plain_rows_agree": rows_agree,
                 "bf16_plain_tokens_agree": tok_agree,
-                "fp32_logit_err": logit_err, "fp32": t32}}
+                "fp32_logit_err": logit_err, "fp32": t32,
+                "launches_fp32": launches32}}
 
 
 # The MoE serving cells (PERF.md §4): arch, layers kept, B, prompt, new
@@ -1377,8 +1393,10 @@ def phase_serve_moe(dev, counters, seed, trace_dir=None) -> dict:
     loop under the purity guard (``serve_greedy``), layer 0's attention
     at the prompt's shape against the plain version; then the same widths
     in fp32 at 2 layers, through the kernel and the plain path (equal
-    greedy tokens, prefill logits within 1e-3).  ``trace_dir``
-    (``--profile``) adds one profiled serve run of each cell."""
+    greedy tokens, prefill logits within 1e-3; one flash launch a layer),
+    keeping that model's layer-0 q, k, v for ``phase_timing_moe_fp32``.
+    ``trace_dir`` (``--profile``) adds one profiled serve run of each
+    cell."""
     import dataclasses
 
     import torch
@@ -1387,7 +1405,8 @@ def phase_serve_moe(dev, counters, seed, trace_dir=None) -> dict:
     from repro_torch.launch.serve import serve_greedy
     from repro_torch.models import transformer as T
 
-    out = {"report": {}, "launches": {}, "qkv": {}, "profile": {}}
+    out = {"report": {}, "launches": {}, "launches_fp32": {}, "qkv": {},
+           "qkv32": {}, "profile": {}}
     for (arch, n_layers, B, S, new, n32, B32, S32, new32) in MOE_CELLS:
         cfg = dataclasses.replace(get_arch(arch).config_fn(),
                                   n_layers=n_layers)
@@ -1447,8 +1466,14 @@ def phase_serve_moe(dev, counters, seed, trace_dir=None) -> dict:
             0, cfg.vocab_size, (B32, S32)).astype(np.int32)
         with torch.inference_mode():
             tokens = torch.from_numpy(p32).to(dev)
-            logit_k, cache = T.prefill(model32, cfg32, tokens)
+            (logit_k, cache), _, launches32 = _launches(
+                counters, lambda: T.prefill(model32, cfg32, tokens))
             del cache
+            need(launches32["flash_attention"] == n32,
+                 f"serve {arch} fp32: prefill launched flash_attention "
+                 f"{launches32['flash_attention']} times, not {n32}")
+            out["launches_fp32"][arch] = launches32
+            out["qkv32"][arch] = _layer0_qkv(model32, cfg32, tokens) + (w,)
             logit_p, cache = T.prefill(model32, cfg32, tokens,
                                        backend="plain")
             del cache
@@ -1476,7 +1501,8 @@ def phase_serve_moe(dev, counters, seed, trace_dir=None) -> dict:
             f"attention {tuple(q.shape)} window {w} err {attn_err}; fp32 at "
             f"{n32} layers, {B32} x {S32} + {new32}: logits err "
             f"{logit_err}, tokens equal, prefill "
-            f"{t32['prefill_s'] * 1e3:.3f} ms")
+            f"{t32['prefill_s'] * 1e3:.3f} ms, flash launches "
+            f"{launches32['flash_attention']}")
         out["launches"][arch] = launches
         out["report"][arch] = {
             "layers": n_layers, "params": n_params, "batch": B,
@@ -1485,7 +1511,8 @@ def phase_serve_moe(dev, counters, seed, trace_dir=None) -> dict:
             "launches": launches, "layer0_attn_err": attn_err,
             "layer0_shape": list(q.shape) + [v.shape[-1]], "window": w,
             "fp32": dict(t32, layers=n32, batch=B32, prompt=S32,
-                         new_tokens=new32, logit_err=logit_err)}
+                         new_tokens=new32, logit_err=logit_err,
+                         launches=launches32)}
     return out
 
 
@@ -3717,40 +3744,84 @@ def phase_timing_slice2(dev, declat, prepost) -> dict:
     return out
 
 
-def _flash_fp32_timing(time_ms, q, k, v) -> dict:
-    """The fp32 scalar flash kernel (``csrc/flash_attention.cu``) at the
-    same shape, the inputs cast to fp32, beside its plain version and
-    fp32 ``F.scaled_dot_product_attention(is_causal=True)``; the bound
-    counts its multiply-adds at the fp32 non-tensor peak."""
+def _flash_fp32_timing(time_ms, q, k, v, *, window: int = 0,
+                       scale=None, label: str = "") -> dict:
+    """The fp32 flash kernel (``csrc/flash_attention_fp32.cu``) at a
+    prefill's layer-0 shape, the inputs cast to fp32, beside its plain
+    version (one call) and fp32 ``F.scaled_dot_product_attention`` on kv
+    heads repeated to H (``is_causal``, or a boolean window mask).  Two
+    bounds over the visible (query, key) pairs: the fp32 products at the
+    67 TFLOP/s non-tensor peak, and three TF32 products each (the
+    kernel's route) at 495 TFLOP/s, the least time for fp32-accurate
+    products on this card: ``bound_ms``."""
+    import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
 
     q, k, v = (x.float() for x in (q, k, v))
     B, S, H, D = q.shape
-    Dv = v.shape[3]
-    ms = time_ms(lambda: ops.flash_attention(q, k, v), 5)
-    plain_ms = time_ms(lambda: ops.flash_attention(q, k, v,
-                                                   backend="plain"), 2)
+    KH, Dv = v.shape[2], v.shape[3]
+    got = ops.flash_attention(q, k, v, window=window, softmax_scale=scale)
+    want = ops.flash_attention(q, k, v, window=window, softmax_scale=scale,
+                               backend="plain")
+    # Layer-0 activations of a seeded model, not the sweep's randn: held
+    # to SDPA's gate below (2e-4), and to 1e-4 here.
+    err = (got - want).abs().max().item()
+    need(err < 1e-4, f"fp32 flash_attention {label} disagrees with its "
+                     f"plain version ({err})")
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, window=window,
+                                             softmax_scale=scale), 5)
+    plain_ms = time_ms(lambda: ops.flash_attention(
+        q, k, v, window=window, softmax_scale=scale, backend="plain"), 1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kt = kt.repeat_interleave(H // KH, dim=1)
+    vt = vt.repeat_interleave(H // KH, dim=1)
+    i = torch.arange(S, device=q.device)
+    if window:
+        keep = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                                  scale=scale)
+    else:
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  scale=scale)
+    lib_err = (sdpa().transpose(1, 2) - got).abs().max().item()
+    need(lib_err < 2e-4, f"fp32 flash_attention {label} disagrees with "
+                         f"SDPA ({lib_err})")
     lib_ms = time_ms(sdpa, 5)
-    err = (sdpa().transpose(1, 2) - ops.flash_attention(q, k, v)
-           ).abs().max().item()
-    need(err < 2e-4, f"fp32 flash_attention disagrees with SDPA ({err})")
+    del qt, kt, vt, got, want
+    pairs = int(((i + 1).clamp(max=window) if window else i + 1).sum().item())
+    flops = 2 * B * H * pairs * (D + Dv)
     nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * Dv) * 4
-    flops = 2 * B * H * (S * (S + 1) // 2) * (D + Dv)
-    bound, by = _bound(nbytes, flops, PEAK_OPS_PER_S)
-    say(f"timing flash_attention fp32 (B {B} S {S} H {H} D {D}, causal, "
-        f"the scalar kernel): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library (SDPA fp32) {lib_ms:.4f} ms, kernel / library "
-        f"{ms / lib_ms:.3f}, bound {bound:.4f} ms ({by}: {nbytes} B, "
-        f"{flops} flops at the fp32 non-tensor peak); kernel vs SDPA {err}")
+    fp32_bound, fp32_by = _bound(nbytes, flops, PEAK_OPS_PER_S)
+    bound, by = _bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+    say(f"timing flash_attention fp32 {label} (B {B} S {S} H {H} KH {KH} "
+        f"D {D} Dv {Dv} window {window}, causal, 3xTF32): kernel "
+        f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of fp32 "
+        f"products), plain {plain_ms:.4f} ms, library (SDPA fp32) "
+        f"{lib_ms:.4f} ms, kernel / library {ms / lib_ms:.3f}, bound "
+        f"{bound:.4f} ms ({by}: 3 x {flops} flops at the TF32 peak; fp32 "
+        f"non-tensor {fp32_bound:.4f} ms, {fp32_by}; {nbytes} B); kernel "
+        f"vs plain {err}, vs SDPA {lib_err}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound, "bound_by": by, "vs_library_err": err,
-            "kernel_over_library": ms / lib_ms}
+            "bound_ms": bound, "bound_by": by, "bound_fp32_ms": fp32_bound,
+            "bound_fp32_by": fp32_by, "max_abs_err": err,
+            "vs_library_err": lib_err, "kernel_over_library": ms / lib_ms,
+            "shape": [B, S, H, KH, D, Dv, window], "pairs": pairs,
+            "ops": flops, "bytes": nbytes}
+
+
+def phase_timing_moe_fp32(dev, moe) -> dict:
+    """The fp32 flash kernel at the MoE cells' fp32 prefill shapes (layer
+    0 of phase 12's 2-layer fp32 models): mixtral's 1 x 5000, H 48 over 8
+    kv heads, D 128, window 4096; deepseek-v2's 2 x 512, H 128, D 192 /
+    Dv 128, causal (``_flash_fp32_timing``)."""
+    time_ms = _timer(dev)
+    return {arch: _flash_fp32_timing(time_ms, q, k, v, window=w, scale=scale,
+                                     label=arch)
+            for arch, (q, k, v, scale, w) in moe["qkv32"].items()}
 
 
 def _flash_at_cell_b(dev, batch: int, seed: int) -> dict:
@@ -3857,8 +3928,9 @@ def phase_timing_slice3(dev, serve, retrieval, seed) -> dict:
         "kernel_over_library": fa_ms / fa_lib_ms, "tflops": fa_tflops,
         "max_abs_err": serve["report"]["layer0_attn_err"],
         "shape": [B, S, H, KH, D, Dv], "bytes": fa_bytes, "ops": fa_flops,
-        "vs_library_err": lib_err,
-        "fp32": _flash_fp32_timing(time_ms, q, k, v)}
+        "vs_library_err": lib_err}
+    out["flash_attention_fp32"] = _flash_fp32_timing(time_ms, q, k, v,
+                                                     label="qwen1.5-0.5b")
 
     cfg = retrieval["cfg"]
     table = retrieval["model"].item_emb.table
@@ -4288,6 +4360,8 @@ KERNELS = (
      "src/repro/kernels/ref.py:697", "prepost"),
     ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:91", "serve"),
+    ("flash_attention_fp32", "src/repro_torch/csrc/flash_attention_fp32.cu",
+     "src/repro/kernels/flash_attention.py:91", "serve"),
     ("embedding_bag", "src/repro_torch/csrc/segment_embed.cu",
      "src/repro/kernels/segment_embed.py:53", "retrieval"),
 )
@@ -4416,7 +4490,10 @@ def main() -> int:
              paths["serve_moe"]["profile"].items()})
     report["timing"]["flash_attention_moe"] = timed(
         "timing_moe", phase_timing_moe, dev, paths["serve_moe"])
+    report["timing"]["flash_attention_fp32_moe"] = timed(
+        "timing_moe_fp32", phase_timing_moe_fp32, dev, paths["serve_moe"])
     paths["serve_moe"].pop("qkv")
+    paths["serve_moe"].pop("qkv32")
     torch.cuda.empty_cache()
     trace_dir = Path(args.profile) if args.profile else None
     report["train_moe"] = timed("train_moe", phase_train_moe, dev, counters,
@@ -4446,9 +4523,14 @@ def main() -> int:
     thr = report["timing"]["bitmap_intersect_es_thr"]
     for name, source, replaces, path in KERNELS:
         t = report["timing"][name]
+        # The fp32 kernel shares the bf16 one's wrapper and count: its
+        # launches are those of the fp32 prefills.
+        launches = (paths[path]["launches_fp32"]["flash_attention"]
+                    if name == "flash_attention_fp32"
+                    else paths[path]["launches"][name])
         row = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": paths[path]["launches"][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": max(report["kernels"]["max_abs_err"][name],
                                t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -4471,6 +4553,19 @@ def main() -> int:
                 arch: {k: t[k] for k in ("shape", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms", "max_abs_err")}
+                for arch, t in moe_t.items()}
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                t["max_abs_err"] for t in moe_t.values()])
+        if name == "flash_attention_fp32":  # the MoE fp32 prefills, apart
+            moe_t = report["timing"]["flash_attention_fp32_moe"]
+            for arch, n in paths["serve_moe"]["launches_fp32"].items():
+                row[f"launches_{arch}"] = n["flash_attention"]
+            row["bound_fp32_ms"] = t["bound_fp32_ms"]
+            row["moe_shapes"] = {
+                arch: {k: t[k] for k in ("shape", "ms", "plain_ms",
+                                         "bound_ms", "bound_fp32_ms",
+                                         "bound_by", "library_ms",
+                                         "max_abs_err")}
                 for arch, t in moe_t.items()}
             row["max_abs_err"] = max([row["max_abs_err"]] + [
                 t["max_abs_err"] for t in moe_t.values()])

@@ -1,8 +1,8 @@
 // Causal flash attention on Hopper's tensor cores (sm_90a, wgmma + TMA), bf16.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
-// (its `_kernel`) for bf16 inputs; fp32 stays on the scalar kernel in
-// flash_attention.cu.  It computes o = softmax(scale * q k^T, top-left
+// (its `_kernel`) for bf16 inputs; fp32 runs on the 3xTF32 kernel in
+// flash_attention_fp32.cu.  It computes o = softmax(scale * q k^T, top-left
 // causal mask or none) v per (batch, query head h), head h reading kv head
 // h / (H / KH), with the online softmax state (m, l, acc) in fp32, masked
 // scores -1e30 (exactly 0 after the exponent, as there), the output divided

@@ -43,7 +43,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 # The checked build: its extra flags and the sources it compiles.
 CHECKED_FLAGS = ("-DREPRO_CHECKED", "-lineinfo")
 CHECKED_SOURCES = ("bitmap_diff.cu", "bitmap_intersect.cu",
-                   "flash_attention.cu", "nlist_merge.cu")
+                   "flash_attention.cu", "flash_attention_fp32.cu",
+                   "nlist_merge.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

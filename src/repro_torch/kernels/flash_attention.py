@@ -1,4 +1,5 @@
-"""Wrapper of the Hopper flash-attention kernels (``csrc/flash_attention.cu``).
+"""Wrapper of the Hopper flash-attention kernels (``csrc/flash_attention.cu``,
+the C entry of both).
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the
 Pallas TPU kernel): causal (top-left aligned) or full attention with
@@ -12,10 +13,13 @@ mask (the JAX prefill's ``chunked_attention(window=...)``): key tiles
 wholly left of every row's window are skipped like those above the
 diagonal.
 
-CUDA tensors only, fp32 or bf16, one kernel for each: bf16 runs on the
-tensor cores (wgmma, K/V tiles by TMA: ``csrc/flash_attention_sm90.cuh``),
-fp32 on a scalar kernel that meets the fp32 tolerance (2e-5), which TF32
-would not.  The plain version for CPU tensors is
+CUDA tensors only, fp32 or bf16, one kernel for each, both on the tensor
+cores: bf16 on wgmma, K/V tiles by TMA (``csrc/flash_attention_sm90.cuh``);
+fp32 in 3xTF32 on ``mma.sync`` (``csrc/flash_attention_fp32.cu``: each
+operand split into two TF32 halves, three TF32 products for each fp32
+one, which keeps the fp32 tolerance, 2e-5, where one TF32 pass would
+not; K/V tiles by a ``cp.async`` ring).  The plain version for CPU
+tensors is
 ``kernels.ref.flash_attention_ref``, chosen by ``kernels.ops``.  Each
 launch adds one to ``flash_attention.launches``; launches are on
 ``torch.cuda.current_stream()`` and never synchronise.

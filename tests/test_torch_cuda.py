@@ -468,6 +468,11 @@ def test_slice2_engines_on_card_equal_cpu(cuda_device, scheme):
     (2, 65, 65, 4, 2, 32, 32, True, torch.bfloat16, 3e-2),
     (1, 1024, 1024, 16, 16, 64, 64, True, torch.bfloat16, 3e-2),
     (1, 300, 300, 4, 2, 6, 10, True, torch.bfloat16, 3e-2),  # plain-load fill
+    # fp32 without a mask: Skv far above Sq, and MLA's 192/128 heads
+    (1, 64, 2048, 4, 2, 64, 64, False, torch.float32, 2e-5),
+    (1, 33, 700, 4, 1, 128, 128, False, torch.float32, 2e-5),
+    (2, 300, 300, 4, 4, 192, 128, False, torch.float32, 2e-5),
+    (1, 20, 1000, 2, 1, 192, 128, False, torch.float32, 2e-5),
 ])
 def test_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, H, KH, D, Dv,
                                     causal, dtype, tol):
@@ -523,7 +528,8 @@ def _sass_by_function(lib) -> dict:
 
 def test_bf16_flash_kernel_runs_on_the_tensor_cores(cuda_device):
     """The bf16 kernel's SASS holds warpgroup MMAs (HGMMA); the fp32
-    kernel's holds no tensor-core MMA at all."""
+    kernel's holds TF32 tensor-core MMAs (its 3xTF32 split: HMMA ...
+    TF32) and no warpgroup MMA."""
     _build.load()
     funcs = _sass_by_function(_build.library_path())
     bf16 = {k: v for k, v in funcs.items() if "flash_wgmma_kernel" in k}
@@ -532,7 +538,34 @@ def test_bf16_flash_kernel_runs_on_the_tensor_cores(cuda_device):
     for name, sass in bf16.items():
         assert "HGMMA" in sass, name
     for name, sass in fp32.items():
-        assert "HGMMA" not in sass and "HMMA" not in sass, name
+        hmma = [line for line in sass.splitlines() if "HMMA" in line]
+        assert hmma and all("TF32" in line for line in hmma), name
+        assert "HGMMA" not in sass, name
+
+
+def _tf32(x):
+    """x rounded to TF32 (11 significant bits, ties away from zero)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_fp32_flash_kernel_holds_the_fp32_tolerance_one_tf32_pass_misses(
+        cuda_device):
+    """At D 64 and softmax_scale 1 (randn inputs: scores of std ~8) the
+    plain version fed inputs rounded to TF32 misses 2e-5 against the fp32
+    plain version, while the kernel (3xTF32) on the unrounded inputs
+    holds it: the split is what keeps fp32 accuracy."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in fp32
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn((1, 256, 4, 64), generator=g, device=cuda_device)
+               for _ in range(3))
+    want = ops.flash_attention(q, k, v, softmax_scale=1.0, backend="plain")
+    got = ops.flash_attention(q, k, v, softmax_scale=1.0)
+    one_pass = ops.flash_attention(_tf32(q), _tf32(k), _tf32(v),
+                                   softmax_scale=1.0, backend="plain")
+    err = (got - want).abs().max().item()
+    err_tf32 = (one_pass - want).abs().max().item()
+    assert err < 2e-5, err
+    assert err_tf32 > 2e-5, err_tf32
 
 
 # B, S, H, KH, D, Dv, window: ragged lengths, windows at and around the
