@@ -60,6 +60,7 @@ from repro_torch.core.frontier import (Child, ClassNode, EngineAccounting,
                                        FrontierScheduler)
 from repro_torch.core.guards import host_sync
 from repro_torch.core.rowstore import DeviceRowStore
+from repro_torch.core.spans import span
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
@@ -165,7 +166,8 @@ class PendingPairResult:
         stats.child_scatters += int(kept_idx.size)
         stats.scatter_words += (int(kept_idx.size) * miner._n_blocks
                                 * miner.block_words)
-        store.free(slots[~freq])                  # dead children: recycle
+        with span("store.free"):
+            store.free(slots[~freq])              # dead children: recycle
         self._segments = []                       # drop device/pinned refs
         return [(int(ki), int(slots[ki]), int(support[ki]), None)
                 for ki in kept_idx]

@@ -46,6 +46,7 @@ from typing import (Any, Deque, Dict, Hashable, List, NamedTuple,
 import numpy as np
 
 from repro_torch.core.guards import device_purity_guard
+from repro_torch.core.spans import span
 
 
 @dataclass
@@ -57,11 +58,12 @@ class EngineAccounting:
     ``compaction_occupancy`` is ``live / capacity`` right after the most
     recent compaction epoch (0.0 when compaction never fired).
 
-    Pipeline telemetry: ``inflight_groups`` is the ring depth
-    the run was configured with; ``device_occupancy`` is the fraction of
-    drain groups dispatched while an earlier group was still in flight
-    (deterministic — derived from ring state at dispatch, not from
-    timing — so it is exactly 0.0 for a serial ``inflight=1`` run);
+    Pipeline counters: ``inflight_groups`` is the ring depth the run
+    was configured with.  ``device_occupancy`` is ring state at
+    dispatch, not a reading of the device: the fraction of drain groups
+    dispatched while an earlier group was still in the ring, so it is
+    exactly 0.0 for a serial ``inflight=1`` run whatever the device did
+    (how busy the device was is read from a profiler trace).
     ``assemble_s`` / ``resolve_s`` split host time between group
     assembly+dispatch and blocking retire-time readbacks."""
 
@@ -318,15 +320,18 @@ class FrontierScheduler:
 
                 t0 = perf_counter()
                 r0 = self.resolve_s
-                cols, meta = self._assemble(drained)
-                widths = None
-                widths_fn = getattr(self.client, "chunk_widths", None)
-                if widths_fn is not None:
-                    widths = widths_fn(cols)
+                with span("sched.assemble"):
+                    cols, meta = self._assemble(drained)
+                    widths = None
+                    widths_fn = getattr(self.client, "chunk_widths", None)
+                    if widths_fn is not None:
+                        widths = widths_fn(cols)
+                    slices = self._chunk_slices(total, widths)
                 parts: List[Tuple[int, Any]] = []
-                for lo, sl in self._chunk_slices(total, widths):
-                    chunk = {k: v[sl] for k, v in cols.items()}
-                    handle = self.client.evaluate_pairs(chunk)
+                for lo, sl in slices:
+                    with span("sched.dispatch"):
+                        chunk = {k: v[sl] for k, v in cols.items()}
+                        handle = self.client.evaluate_pairs(chunk)
                     if self.inflight == 1:
                         # Serial mode resolves chunk-by-chunk so dead
                         # slots are freed before the next chunk
@@ -349,10 +354,11 @@ class FrontierScheduler:
         """Materialise one chunk's deferred result (blocking readbacks
         + stats attribution happen inside the client handle)."""
         t0 = perf_counter()
-        if hasattr(handle, "resolve"):
-            out = list(handle.resolve())
-        else:
-            out = list(handle)
+        with span("sched.resolve"):
+            if hasattr(handle, "resolve"):
+                out = list(handle.resolve())
+            else:
+                out = list(handle)
         self.resolve_s += perf_counter() - t0
         return out
 
@@ -360,26 +366,29 @@ class FrontierScheduler:
         """Pop one group from the ring: resolve its deferred handles,
         emit survivors, push child classes in canonical order, release
         the consumed operand rows."""
-        drained, meta = group.drained, group.meta
-        groups: Dict[Tuple[int, int], List[Tuple[int, Child]]] = {}
-        for lo, part in group.parts:
-            results = part if isinstance(part, list) else self._resolve(part)
-            for ki, row, support, extra in results:
-                ci, a, b = meta[lo + ki]
-                klass = drained[ci]
-                itemset = klass.itemsets[a] + (klass.itemsets[b][-1],)
-                self.client.emit(itemset, support)
-                groups.setdefault((ci, a), []).append(
-                    (b, Child(itemset, row, support, extra)))
-        # Child classes are rebuilt in canonical sibling order (b
-        # ascending), NOT evaluation order: chunk_sort_key may have
-        # permuted the pairs, and class member order is load-bearing
-        # (pair orientation / search order within the class).
-        for ci, _a in sorted(groups):
-            kids = [c for _b, c in sorted(groups[(ci, _a)])]
-            self.push(self.client.make_class(drained[ci], kids))
-        for klass in drained:
-            self.client.release(klass)
+        with span("sched.retire"):
+            drained, meta = group.drained, group.meta
+            groups: Dict[Tuple[int, int], List[Tuple[int, Child]]] = {}
+            for lo, part in group.parts:
+                results = (part if isinstance(part, list)
+                           else self._resolve(part))
+                for ki, row, support, extra in results:
+                    ci, a, b = meta[lo + ki]
+                    klass = drained[ci]
+                    itemset = klass.itemsets[a] + (klass.itemsets[b][-1],)
+                    self.client.emit(itemset, support)
+                    groups.setdefault((ci, a), []).append(
+                        (b, Child(itemset, row, support, extra)))
+            # Child classes are rebuilt in canonical sibling order (b
+            # ascending), NOT evaluation order: chunk_sort_key may have
+            # permuted the pairs, and class member order is load-bearing
+            # (pair orientation / search order within the class).
+            for ci, _a in sorted(groups):
+                kids = [c for _b, c in sorted(groups[(ci, _a)])]
+                self.push(self.client.make_class(drained[ci], kids))
+            with span("store.free"):
+                for klass in drained:
+                    self.client.release(klass)
 
     def _chunk_slices(self, total: int,
                       widths: Optional[np.ndarray],

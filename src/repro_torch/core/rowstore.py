@@ -41,6 +41,7 @@ import torch
 from repro_torch.core.bitmap import (NL_LEN_BUCKETS, nl_pad_len,
                                      suffix_popcounts_np)
 from repro_torch.core.guards import host_sync
+from repro_torch.core.spans import span
 from repro_torch.kernels import ops
 
 
@@ -75,18 +76,23 @@ class DeviceRowStore:
         self.local_blocks = nbl
         self.block_words = bw
         lo = shard * nbl
-        local = np.ascontiguousarray(rows_np[:, lo:lo + nbl], dtype=np.uint32)
-        if local.shape[1] < nbl:            # the tail shard's pad blocks
-            local = np.concatenate([local, np.zeros(
-                (n, nbl - local.shape[1], bw), np.uint32)], axis=1)
-        self.rows = torch.zeros((cap, nbl, bw), dtype=torch.int32,
-                                device=self.device)
-        self.suffix = torch.zeros((cap, nbl + 1), dtype=torch.int32,
-                                  device=self.device)
-        if n:
-            self.rows[:n].copy_(torch.from_numpy(local.view(np.int32)))
-            self.suffix[:n].copy_(torch.from_numpy(
-                suffix_popcounts_np(local)))
+        with span("store.init"):
+            local = np.ascontiguousarray(rows_np[:, lo:lo + nbl],
+                                         dtype=np.uint32)
+            if local.shape[1] < nbl:        # the tail shard's pad blocks
+                local = np.concatenate([local, np.zeros(
+                    (n, nbl - local.shape[1], bw), np.uint32)], axis=1)
+            self.rows = torch.zeros((cap, nbl, bw), dtype=torch.int32,
+                                    device=self.device)
+            self.suffix = torch.zeros((cap, nbl + 1), dtype=torch.int32,
+                                      device=self.device)
+            if n:
+                with span("store.suffix"):
+                    suffix = suffix_popcounts_np(local)
+                with span("store.upload"):
+                    self.rows[:n].copy_(
+                        torch.from_numpy(local.view(np.int32)))
+                    self.suffix[:n].copy_(torch.from_numpy(suffix))
         self._free: List[int] = list(range(cap - 1, n - 1, -1))
         self.grows = 0
         self.compactions = 0
@@ -134,10 +140,11 @@ class DeviceRowStore:
     def _grow(self, need: int) -> None:
         old = self.capacity
         new = _round_capacity(max(2 * old, need))
-        self.rows = torch.cat([self.rows, self.rows.new_zeros(
-            (new - old, self.local_blocks, self.block_words))])
-        self.suffix = torch.cat([self.suffix, self.suffix.new_zeros(
-            (new - old, self.suffix.shape[1]))])
+        with span("store.grow"):
+            self.rows = torch.cat([self.rows, self.rows.new_zeros(
+                (new - old, self.local_blocks, self.block_words))])
+            self.suffix = torch.cat([self.suffix, self.suffix.new_zeros(
+                (new - old, self.suffix.shape[1]))])
         self._free.extend(range(new - 1, old - 1, -1))
         self.grows += 1
         self.peak_capacity = max(self.peak_capacity, new)
@@ -149,24 +156,25 @@ class DeviceRowStore:
         ``int32[old_capacity]`` (-1 for slots that were free): callers
         MUST remap every live handle.  The mapping comes from the host
         free list; the gather itself does not block."""
-        old_cap = self.capacity
-        free_mask = np.zeros(old_cap, bool)
-        free_mask[np.asarray(self._free, np.int64)] = True
-        live = np.nonzero(~free_mask)[0].astype(np.int32)
-        n_live = int(live.size)
-        new_cap = _round_capacity(max(n_live + reserve, 1))
+        with span("store.compact"):
+            old_cap = self.capacity
+            free_mask = np.zeros(old_cap, bool)
+            free_mask[np.asarray(self._free, np.int64)] = True
+            live = np.nonzero(~free_mask)[0].astype(np.int32)
+            n_live = int(live.size)
+            new_cap = _round_capacity(max(n_live + reserve, 1))
 
-        perm = np.full(new_cap, -1, np.int32)       # dest slot -> src slot
-        perm[:n_live] = live
-        self.rows, self.suffix = ops.compact_rows(self.rows, self.suffix,
-                                                  perm)
-        self._free = list(range(new_cap - 1, n_live - 1, -1))
-        self.compactions += 1
-        self.last_compaction_occupancy = n_live / max(new_cap, 1)
+            perm = np.full(new_cap, -1, np.int32)     # dest slot -> src slot
+            perm[:n_live] = live
+            self.rows, self.suffix = ops.compact_rows(self.rows, self.suffix,
+                                                      perm)
+            self._free = list(range(new_cap - 1, n_live - 1, -1))
+            self.compactions += 1
+            self.last_compaction_occupancy = n_live / max(new_cap, 1)
 
-        mapping = np.full(old_cap, -1, np.int32)
-        mapping[live] = np.arange(n_live, dtype=np.int32)
-        return mapping
+            mapping = np.full(old_cap, -1, np.int32)
+            mapping[live] = np.arange(n_live, dtype=np.int32)
+            return mapping
 
     def compact_if_sparse(self, occupancy_threshold: float, *,
                           reserve: int = 0) -> Optional[np.ndarray]:
