@@ -17,8 +17,10 @@ before any rank is spawned, and then (TF32 off throughout):
    out-of-range slots, both scans with a per-pair threshold (random,
    <= 0, INT32_MIN, above every bound; bw 128, 8 and 1; standalone and
    fused), the N-list merge and Z-merge scatter (lengths 0,
-   1, every bucket edge and 32769; whole pool slabs equal) and the
-   compaction gather (rows, suffix tables, (cap, 3) codes); flash
+   1, every bucket edge and 32769; whole pool slabs equal), the
+   compaction gather (rows, suffix tables, (cap, 3) codes) and the
+   level-1 suffix table (the main path's 658 x 242 x 128, bw 8 and 1,
+   rows past n untouched); flash
    attention within 2e-5 (fp32, the 3xTF32 mma.sync kernel) and 3e-2
    (bf16, the wgmma kernel) on the sweep of ``tests/test_kernels.py`` plus
    ragged lengths and Sq != Skv, and the bf16 edges again (head dims
@@ -276,6 +278,18 @@ def phase_kernels(dev, rng) -> dict:
     codes = rows(cap, 1, 3, 0)[:, 0].contiguous()
     agree("compact_gather", (ops.compact_codes(codes, perm),),
           (ops.compact_codes(codes, perm, backend="plain"),), "compact_codes")
+
+    # Level-1 suffix tables into a slab larger than n: the main path's
+    # shape, and bw 8 and 1 past the kernel's 256-block chunk.
+    for n, cap, nb, bw in ((658, 700, 242, 128), (40, 64, 300, 8),
+                           (33, 40, 300, 1)):
+        r = rows(cap, nb, bw, 1)
+        got = torch.full((cap, nb + 1), -7, dtype=torch.int32, device=dev)
+        want = got.clone()
+        ops.suffix_tables(r, got, n)
+        ops.suffix_tables(r, want, n, backend="plain")
+        agree("suffix_table", (got,), (want,),
+              f"rows ({cap}, {nb}, {bw}), n {n}")
 
     _check_diff(dev, rows, agree)
     _check_nlists(dev, rng, agree)
@@ -1005,6 +1019,8 @@ def phase_main(dev, counters) -> dict:
         f"wall {wall_es:.3f} s launches {launches}")
     for name in ("bitmap_intersect_es", "compact_gather"):
         need(launches[name] > 0, f"main path launched {name} no time")
+    need(launches["suffix_table"] == 1, "main path built its level-1 "
+         f"suffix tables in {launches['suffix_table']} launches, not 1")
 
     t0 = time.perf_counter()
     out_no, st_no = _miner(dev, early_stop=False).mine_packed(bdb, ms)
@@ -3041,7 +3057,9 @@ def _kernel_counters():
     from repro_torch.kernels.bitmap_diff import bitmap_diff_es
     from repro_torch.kernels.bitmap_intersect import bitmap_intersect_es
     from repro_torch.kernels.compact import compact_gather
-    return (bitmap_intersect_es, compact_gather, bitmap_diff_es)
+    from repro_torch.kernels.suffix_table import suffix_table
+    return (bitmap_intersect_es, compact_gather, bitmap_diff_es,
+            suffix_table)
 
 
 def phase_sharded(dev, main, declat, smi_line) -> dict:
@@ -3090,6 +3108,8 @@ def phase_sharded(dev, main, declat, smi_line) -> dict:
                  f"{ {k: (cnt[k], want_es[k]) for k in cnt if cnt[k] != want_es.get(k)} }")
             for name in ("bitmap_intersect_es", "compact_gather"):
                 need(ln[name] > 0, f"sharded (1,1): {name} launched no time")
+            need(ln["suffix_table"] == 1, "sharded (1,1): suffix_table "
+                 f"launched {ln['suffix_table']} times, not once")
             launches = dict(ln)
             warm = _warm_wall(run)
             busy = _busy(run, Path(trace_dir))
@@ -3480,7 +3500,51 @@ def phase_timing(dev, main) -> dict:
             "bound_by": comp_by, "library_ms": comp_lib_ms,
             "max_abs_err": 0,
             "rows_in": cap, "rows_out": int(perm_np.size),
-            "live": n_valid, "bytes": comp_bytes}}
+            "live": n_valid, "bytes": comp_bytes},
+        "suffix_table": _suffix_timing(dev, time_ms)}
+
+
+# The level-1 rows of the benchmark's kosarak-eclat.deep cell at its
+# lowest minsup: 658 frequent items, 242 blocks of 128 words.
+SUFFIX_SHAPE = (658, 242, 128)
+
+
+def _suffix_timing(dev, time_ms) -> dict:
+    """The row store's level-1 suffix tables at ``SUFFIX_SHAPE`` in a
+    slab of 1024 rows: the kernel, its plain version and the host NumPy
+    table it replaced, all from the same rows."""
+    import torch
+    from repro_torch.core.bitmap import suffix_popcounts_np
+    from repro_torch.kernels import ops
+
+    n, nb, bw = SUFFIX_SHAPE
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (1024, nb, bw), generator=g,
+                         dtype=torch.int32, device=dev)
+    got = torch.zeros((1024, nb + 1), dtype=torch.int32, device=dev)
+    want = torch.zeros_like(got)
+    ms = time_ms(lambda: ops.suffix_tables(rows, got, n), 50)
+    plain_ms = time_ms(
+        lambda: ops.suffix_tables(rows, want, n, backend="plain"), 5)
+    err = _max_err(got, want)
+    need(err == 0, f"suffix_table disagrees with its plain version at "
+                   f"{SUFFIX_SHAPE} (max abs err {err})")
+    host = rows[:n].cpu().numpy().view(np.uint32)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        table = suffix_popcounts_np(host)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    need(np.array_equal(table, got[:n].cpu().numpy()),
+         "suffix_table disagrees with the host table")
+    nbytes = 4 * n * (nb * bw + nb + 1)
+    bound, by = _bound(nbytes, 0)
+    say(f"timing suffix_table ({n} x {nb} x {bw}): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, host NumPy {min(walls):.1f} ms, bound "
+        f"{bound:.4f} ms ({by}: {nbytes} B)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "host_numpy_ms": min(walls),
+            "max_abs_err": err, "shape": list(SUFFIX_SHAPE), "bytes": nbytes}
 
 
 def _thr_scan(dev, time_ms, bdb, ms) -> dict:
@@ -4352,6 +4416,8 @@ KERNELS = (
      "src/repro/kernels/bitmap_intersect.py:113", "main"),
     ("compact_gather", "src/repro_torch/csrc/compact.cu",
      "src/repro/kernels/compact.py:44", "main"),
+    ("suffix_table", "src/repro_torch/csrc/suffix_table.cu",
+     "none (src/repro/core/rowstore.py:153 computes it with jnp)", "main"),
     ("bitmap_diff_es", "src/repro_torch/csrc/bitmap_diff.cu",
      "src/repro/kernels/bitmap_diff.py:90", "declat"),
     ("nlist_merge", "src/repro_torch/csrc/nlist_merge.cu",
@@ -4411,8 +4477,10 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.nlist_merge import nlist_merge, zmerge_scatter
     from repro_torch.kernels.segment_embed import embedding_bag
+    from repro_torch.kernels.suffix_table import suffix_table
     counters = (bitmap_intersect_es, compact_gather, bitmap_diff_es,
-                nlist_merge, zmerge_scatter, flash_attention, embedding_bag)
+                nlist_merge, zmerge_scatter, flash_attention, embedding_bag,
+                suffix_table)
     # Both builds before any rank is spawned: the checked library builds
     # beside the plain one (one nvcc per source, all started together).
     t0 = time.perf_counter()

@@ -38,8 +38,7 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.bitmap import (NL_LEN_BUCKETS, nl_pad_len,
-                                     suffix_popcounts_np)
+from repro_torch.core.bitmap import NL_LEN_BUCKETS, nl_pad_len
 from repro_torch.core.guards import host_sync
 from repro_torch.core.spans import span
 from repro_torch.kernels import ops
@@ -56,9 +55,11 @@ class DeviceRowStore:
     """Slab of bitmap rows + suffix tables resident on ``device``.
 
     ``rows_np`` is the host ``uint32 (n, n_blocks, block_words)`` level-1
-    bitmap; its rows take slots ``0..n-1``.  The suffix table is computed
-    on the host and uploaded with the rows.  With ``n_shards > 1`` the
-    store holds block shard ``shard`` only (module docstring)."""
+    bitmap; its rows take slots ``0..n-1``.  The rows are uploaded, then
+    their suffix tables are computed on the device from the uploaded rows
+    (``kernels.ops.suffix_tables``: one kernel launch on CUDA).  With
+    ``n_shards > 1`` the store holds block shard ``shard`` only (module
+    docstring)."""
 
     def __init__(self, rows_np: np.ndarray, *, capacity: int = 0,
                  device: torch.device = torch.device("cpu"),
@@ -87,12 +88,11 @@ class DeviceRowStore:
             self.suffix = torch.zeros((cap, nbl + 1), dtype=torch.int32,
                                       device=self.device)
             if n:
-                with span("store.suffix"):
-                    suffix = suffix_popcounts_np(local)
                 with span("store.upload"):
                     self.rows[:n].copy_(
                         torch.from_numpy(local.view(np.int32)))
-                    self.suffix[:n].copy_(torch.from_numpy(suffix))
+                with span("store.suffix"):
+                    ops.suffix_tables(self.rows, self.suffix, n)
         self._free: List[int] = list(range(cap - 1, n - 1, -1))
         self.grows = 0
         self.compactions = 0

@@ -66,6 +66,7 @@ SIGNATURES = {
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _F, _I, _I, _I, _P),
     "repro_embedding_bag": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _P),
+    "repro_suffix_table": (_P, _P, _L, _I, _I, _P),
     "repro_nlist_set_packed_adv": (_I,),       # the checked build only
 }
 

@@ -7,7 +7,8 @@ Selection goes by the device of the tensors given:
   tests and ``device="cpu"`` runs);
 * CUDA tensors launch the Hopper kernels (``kernels.bitmap_intersect``,
   ``kernels.bitmap_diff``, ``kernels.nlist_merge``, ``kernels.compact``,
-  ``kernels.flash_attention``, ``kernels.segment_embed``), or raise —
+  ``kernels.suffix_table``, ``kernels.flash_attention``,
+  ``kernels.segment_embed``), or raise —
   nothing falls back.
 
 ``backend`` is kept for API parity with the JAX package: ``"auto"`` (the
@@ -46,6 +47,7 @@ from . import flash_attention as _fa
 from . import nlist_merge as _nl
 from . import ref as _ref
 from . import segment_embed as _se
+from . import suffix_table as _st
 from repro_torch.core.bitmap import popcount32, suffix_popcounts
 from repro_torch.core.guards import host_sync
 
@@ -424,6 +426,18 @@ def compact_rows(rows: Tensor, suffix: Tensor, perm, *,
                 _compact.compact_gather(suffix, perm))
     return (_ref.compact_gather_ref(rows, perm),
             _ref.compact_gather_ref(suffix, perm))
+
+
+def suffix_tables(rows: Tensor, suffix: Tensor, n: int, *,
+                  backend: str = "auto") -> Tensor:
+    """Fill ``suffix[:n]`` in place with the suffix popcount tables of
+    ``rows[:n]`` (``core.bitmap.suffix_popcounts``); the row store's
+    level-1 tables.  Rows past ``n`` are not touched.  Returns
+    ``suffix``."""
+    if _use_kernel(rows, backend):
+        return _st.suffix_table(rows, suffix, n)
+    suffix[:n] = suffix_popcounts(rows[:n])
+    return suffix
 
 
 def _zero_scan_inputs(U: Tensor) -> Tuple[Tensor, Tensor]:

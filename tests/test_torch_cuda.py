@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.bitmap import suffix_popcounts
+from repro_torch.core.bitmap import suffix_popcounts, suffix_popcounts_np
 from repro_torch.core.eclat import mine_bitmap
 from repro_torch.core.prepost import mine_prepost_device
+from repro_torch.core.rowstore import DeviceRowStore
 from repro_torch.data.transactions import (gen_dense_tabular,
                                            gen_powerlaw_baskets)
 from repro_torch.kernels import _build, ops
@@ -23,6 +24,7 @@ from repro_torch.kernels.compact import compact_gather
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.nlist_merge import nlist_merge, zmerge_scatter
 from repro_torch.kernels.segment_embed import embedding_bag
+from repro_torch.kernels.suffix_table import suffix_table
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +93,66 @@ def test_compact_kernel_matches_plain(cuda_device):
         assert compact_gather.launches == before + 1
         assert torch.equal(got, ops.compact_rows(slab, slab, perm,
                                                  backend="plain")[0])
+
+
+# n, capacity, blocks, words a block, first word's offset in its buffer:
+# the main path's level-1 shape; 16-byte loads with 2 lanes a block (bw 8)
+# and 64 vectors a block (bw 256); 4-byte loads at bw 1 and 3, and at bw 8
+# from a buffer 4 bytes off 16-byte alignment; block counts that are not a
+# multiple of 32, above the kernel's 256-block chunk, and one block.
+SUFFIX_CASES = [(658, 700, 242, 128, 0), (40, 64, 37, 8, 0),
+                (33, 40, 300, 1, 0), (5, 9, 513, 128, 0),
+                (17, 17, 11, 3, 0), (9, 12, 70, 8, 1), (6, 8, 3, 256, 0),
+                (64, 64, 1, 8, 0)]
+
+
+@pytest.mark.parametrize("n,cap,nb,bw,offset", SUFFIX_CASES)
+def test_suffix_table_kernel_matches_plain(cuda_device, n, cap, nb, bw,
+                                           offset):
+    """Bit-equal to the plain route and to the host table over words with
+    bit 31 set; the rows past ``n`` keep what they held."""
+    rng = np.random.default_rng(nb * bw)
+    rows = _rows(rng, cap, nb, bw, cuda_device)
+    rows[0] = -1                                  # every bit set
+    rows[min(1, n - 1)] = 0
+    if offset:
+        buf = torch.empty(cap * nb * bw + offset, dtype=torch.int32,
+                          device=cuda_device)
+        buf[offset:] = rows.reshape(-1)
+        rows = buf[offset:].view(cap, nb, bw)
+    got = torch.full((cap, nb + 1), -7, dtype=torch.int32, device=cuda_device)
+    want = got.clone()
+    before = suffix_table.launches
+    assert ops.suffix_tables(rows, got, n) is got
+    assert suffix_table.launches == before + 1
+    ops.suffix_tables(rows, want, n, backend="plain")
+    assert suffix_table.launches == before + 1
+    assert torch.equal(got, want)
+    assert bool((got[n:] == -7).all())
+    host = suffix_popcounts_np(rows[:n].cpu().numpy().view(np.uint32))
+    assert np.array_equal(got[:n].cpu().numpy(), host)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3])
+def test_rowstore_builds_its_suffix_tables_with_one_launch(cuda_device,
+                                                          n_shards):
+    """Each block shard's store (the tail one with pad blocks) holds the
+    host table of its local rows, from one launch per store built."""
+    rng = np.random.default_rng(n_shards)
+    n, nb, bw = 21, 70, 8
+    rows_np = _rows(rng, n, nb, bw, "cpu").numpy().view(np.uint32)
+    nbl = -(-nb // n_shards)
+    padded = np.zeros((n, nbl * n_shards, bw), np.uint32)
+    padded[:, :nb] = rows_np
+    for shard in range(n_shards):
+        before = suffix_table.launches
+        store = DeviceRowStore(rows_np, capacity=40, device=cuda_device,
+                               n_shards=n_shards, shard=shard)
+        assert suffix_table.launches == before + 1
+        local = padded[:, shard * nbl:(shard + 1) * nbl]
+        assert np.array_equal(store.suffix[:n].cpu().numpy(),
+                              suffix_popcounts_np(local))
+        assert not bool(store.suffix[n:].any())
 
 
 def test_miner_on_card_equals_cpu(cuda_device):

@@ -220,6 +220,27 @@ def test_rowstore_trace_matches_reference():
     assert t.grows > 0 and t.compactions >= 2
 
 
+@pytest.mark.parametrize("n_shards,shard", [(1, 0), (2, 0), (2, 1)])
+def test_rowstore_level1_suffix_tables_equal_the_host_table(n_shards, shard):
+    """The suffix tables the store computes from its uploaded rows equal
+    the host table of its local block shard (the tail shard's pad block
+    counts zero); the slots past the level-1 rows stay zero."""
+    rng = np.random.default_rng(29 + 2 * n_shards + shard)
+    n, nb, bw = 9, 5, 3
+    rows = rng.integers(0, 2 ** 32, (n, nb, bw), dtype=np.uint64
+                        ).astype(np.uint32)
+    rows[0] |= np.uint32(1 << 31)          # bit 31 set in every word
+    rows[1] = 0                            # an empty row
+    t = DeviceRowStore(rows, capacity=16, n_shards=n_shards, shard=shard)
+    nbl = t.local_blocks
+    local = np.zeros((n, nbl, bw), np.uint32)
+    part = rows[:, shard * nbl:(shard + 1) * nbl]
+    local[:, :part.shape[1]] = part
+    assert np.array_equal(t.suffix[:n].numpy(),
+                          tbitmap.suffix_popcounts_np(local))
+    assert t.capacity > n and not t.suffix[n:].any()
+
+
 # ---------------------------------------------------------------------------
 # the miner: itemsets and every counter equal to the JAX engine's
 # ---------------------------------------------------------------------------
