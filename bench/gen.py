@@ -1,8 +1,13 @@
-"""Transaction generators of the benchmark, its own, so that a change to
-the program cannot change the data the benchmark mines.
+"""The benchmark's databases, drawn by its own generators
+(``bench/generators/``), so that a change to the program cannot change
+the data the benchmark mines.
 
 A configuration file names a generator, its parameters and the seed of
-its database (``data_seed``).  A run's ``--seed`` then shuffles that
+its database (``data_seed``).  Generator ``<name>`` is
+``bench/generators/<name>.py``, a module with ``PARAMS`` (the
+configuration keys it takes) and ``stream(*, seed, batch, **params)``,
+which yields ``(items, mask)`` batches, so a new database family is a
+new file.  A run's ``--seed`` then shuffles that
 database: it permutes the transactions and relabels the items.  So every
 seed mines the same sizes (the same supports, itemsets and lattice up to
 ties) on other bitmaps, and the same seed always gives the same input.
@@ -10,58 +15,11 @@ ties) on other bitmaps, and the same seed always gives the same input.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Tuple
+from typing import List
 
 import numpy as np
 
-BatchStream = Iterator[Tuple[np.ndarray, np.ndarray]]
-
-
-def powerlaw_stream(*, n_trans: int, n_items: int, avg_trans_len: float,
-                    alpha: float, seed: int, batch: int) -> BatchStream:
-    """Kosarak-family baskets: Poisson lengths of mean ``avg_trans_len``
-    (at least 1, at most ``3 * mean + 8`` and ``n_items``), each basket
-    that many distinct items drawn one after another with Zipf
-    popularity of exponent ``alpha``, an item already in the basket
-    drawn again being skipped (successive sampling without replacement).
-    The mean number of distinct items a basket is the mean length."""
-    rng = np.random.default_rng(seed)
-    pop = 1.0 / np.arange(1, n_items + 1) ** alpha
-    pop /= pop.sum()
-    cap = max(4, int(avg_trans_len * 3) + 8)
-    for lo in range(0, n_trans, batch):
-        b = min(batch, n_trans - lo)
-        lens = np.clip(rng.poisson(avg_trans_len, b), 1, min(cap, n_items))
-        items = rng.choice(n_items, size=(b, cap), p=pop)
-        first = _first_seen(items)
-        short = np.flatnonzero(first.sum(axis=1) < lens)
-        while short.size:
-            # Rows whose draws repeat so often that they hold fewer
-            # distinct items than their length: draw them again, longer.
-            more = rng.choice(n_items, size=(short.size, 4 * cap), p=pop)
-            f = _first_seen(more)
-            k = np.argsort(~f, axis=1, kind="stable")[:, :cap]
-            items[short] = np.take_along_axis(more, k, axis=1)
-            first[short] = np.take_along_axis(f, k, axis=1)
-            short = short[first[short].sum(axis=1) < lens[short]]
-        mask = first & (np.cumsum(first, axis=1) <= lens[:, None])
-        yield items, mask
-
-
-def _first_seen(items: np.ndarray) -> np.ndarray:
-    """True where a row's entry is its item's first occurrence."""
-    order = np.argsort(items, axis=1, kind="stable")
-    s = np.take_along_axis(items, order, axis=1)
-    first_sorted = np.ones(s.shape, bool)
-    first_sorted[:, 1:] = s[:, 1:] != s[:, :-1]
-    first = np.empty_like(first_sorted)
-    np.put_along_axis(first, order, first_sorted, axis=1)
-    return first
-
-
-STREAMS = {"powerlaw": powerlaw_stream}
-# The configuration keys each generator takes.
-PARAMS = {"powerlaw": ("n_trans", "n_items", "avg_trans_len", "alpha")}
+from bench import byname
 
 
 class Transactions:
@@ -85,9 +43,9 @@ class Transactions:
 def draw(config: dict) -> Transactions:
     """The database a configuration describes: its generator
     (``generator``) drawn from ``data_seed`` in batches of ``batch``."""
-    name = config["generator"]
-    params = {k: config[k] for k in PARAMS[name] if k in config}
-    stream = STREAMS[name](seed=int(config["data_seed"]),
+    family = byname.load("generators", config["generator"])
+    params = {k: config[k] for k in family.PARAMS if k in config}
+    stream = family.stream(seed=int(config["data_seed"]),
                            batch=int(config["batch"]), **params)
     items, masks = zip(*stream, strict=True)
     return Transactions(np.concatenate(items).astype(np.int32),

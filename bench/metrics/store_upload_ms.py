@@ -1,7 +1,8 @@
-"""store_upload_ms: the row store's upload of the level-1 rows and
-their suffix table a job, the program's ``repro_torch.store.upload``
-spans (the two copies from pageable host memory, inside
-``store.init``), mean over the window's jobs, in ms."""
+"""store_upload_ms: the row store's upload of the level-1 rows a job,
+the program's ``repro_torch.store.upload`` spans (the rows' one copy
+from pageable host memory, inside ``store.init``; the suffix table is
+computed on the card after it, in ``store.suffix``), mean over the
+window's jobs, in ms."""
 
 from bench import spans
 

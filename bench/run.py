@@ -30,7 +30,6 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import pickle  # noqa: E402
@@ -52,7 +51,7 @@ sys.path.insert(1, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 
-from bench import gen  # noqa: E402
+from bench import byname, gen  # noqa: E402
 from bench.reference import eclat as reference  # noqa: E402
 
 # Top-level modules that may not be loaded in the measuring process.
@@ -107,13 +106,7 @@ class Job:
 
 def reader(metric: str) -> Callable[["Outcome"], Optional[float]]:
     """``bench/metrics/<metric>.py``'s ``read``."""
-    path = BENCH / "metrics" / f"{metric}.py"
-    mod_name = "bench_metric_" + "".join(
-        ch if ch.isalnum() else "_" for ch in metric)
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return byname.load("metrics", metric).read
 
 
 def forbidden_modules() -> List[str]:

@@ -22,10 +22,14 @@ from bench import run as bench_run  # noqa: E402
 # mix's shape (one rung, or four in turn).  "ladder" is the Kosarak
 # configuration under ``traffic/ladder.json``, a mix kept for a later
 # cell; "declat" the same configuration mined with diffsets.
+# "tabular" is the dense tabular family (``tabular.json`` beside this
+# file) mined with diffsets at 0.28: a dense dEclat lattice, nearly every
+# candidate frequent (some seconds a job on the CPU).
 SMALL = {
     "kosarak-eclat.deep": (4000, [0.004]),
     "declat": (3000, [0.01]),
     "ladder": (6000, [0.02, 0.04, 0.08, 0.16]),
+    "tabular": (3000, [0.28]),
 }
 
 
@@ -37,6 +41,9 @@ def small_cell(name):
     elif name == "declat":
         cell.config = dict(cell.config,
                            miner=dict(cell.config["miner"], scheme="declat"))
+    elif name == "tabular":
+        cell.config = json.loads(
+            (ROOT / "bench" / "tests" / "tabular.json").read_text())
     n_trans, rel = SMALL[name]
     cell.config = dict(cell.config, n_trans=n_trans)
     cell.traffic = dict(cell.traffic, minsup_rel=rel)
