@@ -164,15 +164,17 @@ class Child(NamedTuple):
 class _InflightGroup:
     """One dispatched-but-unretired drain group in the pipeline ring.
 
-    ``parts`` holds ``(chunk_lo, handle_or_results)`` per chunk slice:
-    a lazy handle while readbacks are deferred, or an already-resolved
-    result list (``inflight=1``, or clients returning plain iterables).
+    ``meta`` is the group's int32 ``(3, total)`` pair metadata: drained
+    class index, member ``a``, member ``b`` per column, in dispatch
+    order.  ``parts`` holds ``(chunk_lo, handle_or_results)`` per chunk
+    slice: a lazy handle while readbacks are deferred, or an
+    already-resolved result list (``inflight=1``, or clients returning
+    plain iterables).
     """
 
     __slots__ = ("drained", "meta", "parts", "total")
 
-    def __init__(self, drained: List[ClassNode],
-                 meta: List[Tuple[int, int, int]],
+    def __init__(self, drained: List[ClassNode], meta: np.ndarray,
                  parts: List[Tuple[int, Any]], total: int):
         self.drained = drained
         self.meta = meta
@@ -230,6 +232,9 @@ class FrontierScheduler:
         self.chunk_quantum = max(1, int(getattr(client, "chunk_quantum", 1)))
         self._stack: List[ClassNode] = []
         self._ring: Deque[_InflightGroup] = deque()
+        # Sibling-pair triangles by class size (read-only), made once a
+        # run: deep levels drain many small classes of repeating sizes.
+        self._triangles: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         # Pipeline telemetry: a group counts as "overlapped" iff an
         # earlier group was still in flight at its dispatch.  Pure ring
         # bookkeeping (no timing), so the metric is deterministic.
@@ -372,8 +377,10 @@ class FrontierScheduler:
             for lo, part in group.parts:
                 results = (part if isinstance(part, list)
                            else self._resolve(part))
-                for ki, row, support, extra in results:
-                    ci, a, b = meta[lo + ki]
+                # Only the survivors' metadata becomes Python ints.
+                cia, aa, ba = meta[:, [lo + r[0] for r in results]].tolist()
+                for ci, a, b, (_ki, row, support, extra) in zip(
+                        cia, aa, ba, results, strict=True):
                     klass = drained[ci]
                     itemset = klass.itemsets[a] + (klass.itemsets[b][-1],)
                     self.client.emit(itemset, support)
@@ -397,17 +404,28 @@ class FrontierScheduler:
         ``pair_chunk`` strides.  With per-pair width caps (already in
         sorted-column order, non-increasing after the length sort): grow
         each chunk greedily while it stays within the width cap of every
-        member — chunk size <= min(widths in chunk) by construction."""
+        member — chunk size <= min(widths in chunk) by construction.
+
+        The greedy chunk from ``lo`` ends at the first pair ``end > lo``
+        that would not fit, ``end - widths[end] >= lo``.  ``reach`` is
+        the running maximum of ``i - max(widths[i], 1)``: every ``i <=
+        lo`` has it below ``lo``, so that ``end`` is the first index
+        whose ``reach`` is ``>= lo``, one binary search a chunk and no
+        loop over pairs."""
         slices: List[Tuple[int, slice]] = []
         q = self.chunk_quantum
+        if widths is not None:
+            # host-sync: width caps are a host np vector by protocol
+            caps = np.asarray(widths, np.int64)
+            reach = np.maximum.accumulate(
+                np.arange(caps.size, dtype=np.int64) - np.maximum(caps, 1))
         lo = 0
         while lo < total:
             if widths is None:
                 end = min(lo + self.pair_chunk, total)
             else:
-                end = lo + 1
-                while end < total and (end - lo) < int(widths[end]):
-                    end += 1
+                end = min(max(int(np.searchsorted(reach, lo, "left")),
+                              lo + 1), total)
             if q > 1 and end < total and (end - lo) > q:
                 # Align non-final chunks to the cls-shard count so each
                 # shard's slice covers real pairs evenly (the dispatch
@@ -419,11 +437,21 @@ class FrontierScheduler:
             lo = end
         return slices
 
+    def _triangle(self, m: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``np.triu_indices(m, 1)``, read-only and kept for the run."""
+        tri = self._triangles.get(m)
+        if tri is None:
+            tri = np.triu_indices(m, 1)
+            for half in tri:
+                half.setflags(write=False)
+            self._triangles[m] = tri
+        return tri
+
     def _assemble(self, drained: List[ClassNode],
-                  ) -> Tuple[Dict[str, np.ndarray],
-                             List[Tuple[int, int, int]]]:
+                  ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
         """Concatenate every drained class's sibling-pair triangle into
-        global operand columns plus (class, a, b) metadata.
+        global operand columns plus int32 ``(3, total)`` metadata: the
+        (class, a, b) of each pair, as columns.
 
         Length-aware composition: a client whose per-pair
         dispatch width depends on operand size (the N-list engine — its
@@ -435,21 +463,22 @@ class FrontierScheduler:
         result sets are order-independent, so this only moves padding.
         """
         cols_l: Dict[str, List[np.ndarray]] = {}
-        meta: List[Tuple[int, int, int]] = []
+        meta_l: List[Tuple[np.ndarray, ...]] = []
         for ci, klass in enumerate(drained):
-            m = len(klass.itemsets)
-            ia, ib = np.triu_indices(m, 1)
+            ia, ib = self._triangle(len(klass.itemsets))
             for key, col in self.client.pair_columns(klass, ia, ib).items():
                 # host-sync: protocol guarantees host np operand columns
                 cols_l.setdefault(key, []).append(np.asarray(col))
-            meta.extend((ci, int(a), int(b)) for a, b in zip(ia, ib, strict=True))
+            meta_l.append((np.full(ia.size, ci, np.int32), ia, ib))
         cols = {k: np.concatenate(v) for k, v in cols_l.items()}
+        meta = np.array([np.concatenate(c) for c in zip(*meta_l)],
+                        dtype=np.int32)
         key_fn = getattr(self.client, "chunk_sort_key", None)
-        if key_fn is not None and len(meta) > 1:
+        if key_fn is not None and meta.shape[1] > 1:
             key = key_fn(cols)
             if key is not None:
                 # host-sync: sort key is a host np vector by protocol
                 order = np.argsort(np.asarray(key), kind="stable")
                 cols = {k: c[order] for k, c in cols.items()}
-                meta = [meta[int(i)] for i in order]
+                meta = meta[:, order]
         return cols, meta

@@ -93,7 +93,7 @@ class DeviceRowStore:
                         torch.from_numpy(local.view(np.int32)))
                 with span("store.suffix"):
                     ops.suffix_tables(self.rows, self.suffix, n)
-        self._free: List[int] = list(range(cap - 1, n - 1, -1))
+        self._set_free(cap, n)
         self.grows = 0
         self.compactions = 0
         self.last_compaction_occupancy = 0.0
@@ -120,22 +120,45 @@ class DeviceRowStore:
 
     @property
     def n_live(self) -> int:
-        return self.capacity - len(self._free)
+        return self.capacity - self._n_free
 
     @property
     def occupancy(self) -> float:
         return self.n_live / max(self.capacity, 1)
 
+    # The free list is a stack of slot ids: ``_free[:_n_free]``, top at
+    # the end.  Slots go out and come back by slices, never one Python
+    # call a slot; a fresh or compacted slab stacks its free slots so the
+    # lowest pops first.
+
+    def _set_free(self, cap: int, n_live: int) -> None:
+        """Every slot from ``n_live`` up is free, the lowest on top."""
+        self._free = np.arange(cap - 1, n_live - 1, -1, dtype=np.int32)
+        self._n_free = cap - n_live
+
+    def _push(self, ids: np.ndarray) -> None:
+        top = self._n_free + ids.size
+        if top > self._free.size:
+            grown = np.empty(max(top, 2 * self._free.size), np.int32)
+            grown[:self._n_free] = self._free[:self._n_free]
+            self._free = grown
+        self._free[self._n_free:top] = ids
+        self._n_free = top
+
     def alloc(self, k: int) -> np.ndarray:
-        """Pop ``k`` free slots (int32), growing the slab if needed."""
-        if len(self._free) < k:
+        """Pop ``k`` free slots (int32, the top of the stack first),
+        growing the slab if needed."""
+        if self._n_free < k:
             self._grow(self.n_live + k)
-        slots = np.asarray([self._free.pop() for _ in range(k)], np.int32)
+        top = self._n_free
+        slots = self._free[top - k:top][::-1].copy()
+        self._n_free = top - k
         self.peak_live = max(self.peak_live, self.n_live)
         return slots
 
-    def free(self, ids: Iterable[int]) -> None:
-        self._free.extend(int(i) for i in ids)
+    def free(self, ids: "np.ndarray | Sequence[int]") -> None:
+        """Push ``ids`` back, in their order (the last is popped first)."""
+        self._push(np.asarray(ids, np.int32).reshape(-1))
 
     def _grow(self, need: int) -> None:
         old = self.capacity
@@ -145,7 +168,7 @@ class DeviceRowStore:
                 (new - old, self.local_blocks, self.block_words))])
             self.suffix = torch.cat([self.suffix, self.suffix.new_zeros(
                 (new - old, self.suffix.shape[1]))])
-        self._free.extend(range(new - 1, old - 1, -1))
+        self._push(np.arange(new - 1, old - 1, -1, dtype=np.int32))
         self.grows += 1
         self.peak_capacity = max(self.peak_capacity, new)
 
@@ -159,7 +182,7 @@ class DeviceRowStore:
         with span("store.compact"):
             old_cap = self.capacity
             free_mask = np.zeros(old_cap, bool)
-            free_mask[np.asarray(self._free, np.int64)] = True
+            free_mask[self._free[:self._n_free]] = True
             live = np.nonzero(~free_mask)[0].astype(np.int32)
             n_live = int(live.size)
             new_cap = _round_capacity(max(n_live + reserve, 1))
@@ -168,7 +191,7 @@ class DeviceRowStore:
             perm[:n_live] = live
             self.rows, self.suffix = ops.compact_rows(self.rows, self.suffix,
                                                       perm)
-            self._free = list(range(new_cap - 1, n_live - 1, -1))
+            self._set_free(new_cap, n_live)
             self.compactions += 1
             self.last_compaction_occupancy = n_live / max(new_cap, 1)
 
